@@ -1,0 +1,116 @@
+"""The port's derivatives against the JAX package and the float64 oracles.
+
+Inputs are made by numpy from a seed and handed to both packages.
+
+* float64: the port's plain path (dense operator, CPU) against
+  ``cfd_tpu.dfdx/dfdy/dfdz(method="pcr")`` and against both packages'
+  scipy oracles — 1e-10 relative to max|ref|.
+* float32: the port's plain path against the Pallas kernels it replaces,
+  run in interpret mode as ``tests/test_leading.py`` runs them —
+  2e-5 * max|ref| (the f32-recurrence tolerance of those kernels' own
+  tests, doubled for the second f32 path on the other side).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cfd_tpu
+import cfd_tpu.schemes as jsch
+from cfd_tpu.oracle import derivative_np as jax_oracle
+from cfd_tpu.ops.pallas_lane import lane_derivative as pallas_lane
+from cfd_tpu.ops.pallas_leading import leading_derivative as pallas_leading
+from cfd_tpu.ops.pallas_sublane import sublane_derivative as pallas_sublane
+
+import cfd_tpu_torch as ct
+import cfd_tpu_torch.schemes as tsch
+from cfd_tpu_torch.oracle import derivative_np as port_oracle
+
+NAMES = ["SCHEME4", "SCHEME4_PERIODIC", "SCHEME6", "SCHEME6_PERIODIC"]
+F64_TOL = 1e-10
+F32_TOL = 2e-5
+AXES = {"dfdx": -1, "dfdy": -2, "dfdz": -3}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.abs(a - b).max() / np.abs(b).max()
+
+
+@pytest.mark.parametrize("op", list(AXES))
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_float64_matches_jax_and_oracles(name, op):
+    js, ts = getattr(jsch, name), getattr(tsch, name)
+    f = np.random.default_rng(11).standard_normal((20, 24, 28)) + 0.5
+    dx = 0.07
+    got = getattr(ct, op)(torch.from_numpy(f), dx, ts).numpy()
+    ref_jax = np.asarray(getattr(cfd_tpu, op)(jnp.asarray(f), dx, js, method="pcr"))
+    assert _rel(got, ref_jax) <= F64_TOL
+    axis = AXES[op] % 3
+    assert _rel(got, jax_oracle(js, f, dx, axis=axis)) <= F64_TOL
+    assert _rel(port_oracle(ts, f, dx, axis=axis), jax_oracle(js, f, dx, axis=axis)) <= F64_TOL
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_gradient_is_three_single_axis_calls(name):
+    js, ts = getattr(jsch, name), getattr(tsch, name)
+    f = np.random.default_rng(12).standard_normal((16, 20, 24))
+    spacing = (0.3, 0.2, 0.1)
+    got = ct.gradient(torch.from_numpy(f), spacing, ts)
+    ref = cfd_tpu.gradient(jnp.asarray(f), spacing, js, method="pcr")
+    for g, r in zip(got, ref):
+        assert _rel(g.numpy(), r) <= F64_TOL
+
+
+def _pallas_case(kernel, scheme, f32):
+    if kernel == "lane_fold":
+        return pallas_lane(f32, 0.02, scheme, interpret=True)
+    if kernel == "lane_roll":
+        return pallas_lane(f32, 0.02, scheme, interpret=True, fold=False)
+    if kernel == "sublane":
+        return pallas_sublane(f32, 0.02, scheme, axis=1, interpret=True)
+    return pallas_leading(f32, 0.02, scheme, interpret=True)
+
+
+PALLAS = {
+    # kernel: (shape, axis of the derivative)
+    "lane_fold": ((4, 8, 256), 2),
+    "lane_roll": ((2, 2, 512), 2),
+    "sublane": ((2, 256, 128), 1),
+    "leading": ((128, 8, 128), 0),
+}
+
+
+@pytest.mark.parametrize("kernel", list(PALLAS))
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_float32_matches_pallas_interpret(name, kernel):
+    js, ts = getattr(jsch, name), getattr(tsch, name)
+    shape, axis = PALLAS[kernel]
+    f = (np.random.default_rng(13).standard_normal(shape) + 0.5).astype(np.float32)
+    ref = np.asarray(_pallas_case(kernel, js, jnp.asarray(f)))
+    got = ct.derivative(torch.from_numpy(f), 0.02, ts, axis=axis).numpy()
+    assert got.dtype == np.float32
+    assert _rel(got, ref) <= F32_TOL
+
+
+@pytest.mark.parametrize("method", ["auto", "kernel", "matmul"])
+def test_methods_agree_on_cpu(method):
+    """On a CPU tensor every method is the plain path: no kernel launches."""
+    from cfd_tpu_torch.ops import lane, strided
+
+    f = torch.from_numpy(np.random.default_rng(14).standard_normal((8, 12, 16)))
+    before = (lane.LAUNCHES, strided.LAUNCHES)
+    for op in AXES:
+        got = getattr(ct, op)(f, 0.1, ct.SCHEME4, method=method)
+        ref = getattr(ct, op)(f, 0.1, ct.SCHEME4, method="matmul")
+        assert torch.equal(got, ref)
+    assert (lane.LAUNCHES, strided.LAUNCHES) == before
+
+
+def test_rejects_second_derivative_and_unknown_method():
+    f = torch.zeros(8, 8, 8)
+    with pytest.raises(ValueError):
+        ct.dfdx(f, 0.1, tsch.SCHEME4_D2)
+    with pytest.raises(ValueError):
+        ct.dfdx(f, 0.1, method="pcr")
