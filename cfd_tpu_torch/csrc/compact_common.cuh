@@ -17,8 +17,7 @@
 // f is read once, not 2K + 1 times), and the backward sweep below its row.
 // The window shifts by register moves, and a move waits for the load it
 // copies, so it does not hide the memory latency: measured on an H100, a
-// sweep still waits about one load latency per row (PERF.md). The host
-// mirrors CFD_AHEAD (ops/lane.py) for the shared-memory row stride.
+// sweep still waits about one load latency per row (PERF.md).
 #define CFD_AHEAD 8
 #define CFD_BEHIND 8
 

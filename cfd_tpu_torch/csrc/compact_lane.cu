@@ -21,7 +21,7 @@
 // both in place (solve_line). The row stride is n + 9, rounded up to odd:
 // the 9 extra slots hold the line's first values for the periodic wrap,
 // and an odd stride puts the 32 lines a warp walks in 32 different banks.
-// The block writes the lines back coalesced. L is chosen on the host from n
+// The block writes the lines back coalesced. L is chosen from n at launch
 // (32 lines at n = 256, 16 at n = 512) so that a block fits 48 KB. The
 // sweeps bound the kernel: shared memory holds ~200 lines per SM, and each
 // row of a sweep waits on latency (PERF.md). Splitting each line into
@@ -86,18 +86,46 @@ __global__ void compact_lane_kernel(const float* __restrict__ f,
   }
 }
 
+#define LANE_THREADS 128               // >= the most lines a block stages
+#define LANE_SMEM_DEFAULT (48 * 1024)  // bytes a block gets without opting in
+#define LANE_MAX_DEVICES 64
+
+// Per device: the dynamic shared memory the kernel has been opted in to
+// (the device's per-block maximum), 0 until its first launch there.
+static int lane_smem_optin[LANE_MAX_DEVICES];
+
+static cudaError_t lane_smem_limit(int* bytes) {
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= LANE_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!lane_smem_optin[dev]) {
+    int most;
+    err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(compact_lane_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    lane_smem_optin[dev] = most;
+  }
+  *bytes = lane_smem_optin[dev];
+  return cudaSuccess;
+}
+
+// Lines of length n = c->n, `lines` of them. A block stages 32 lines, halved
+// until they fit 48 KB; a line longer than the device's opt-in maximum of
+// shared memory returns cudaErrorInvalidValue.
 extern "C" int cfd_compact_lane(const float* f, float* out, const float* tab,
-                                const Coef* c, long long lines,
-                                int lines_per_block, int threads,
-                                void* stream) {
-  const size_t smem = (size_t)lines_per_block * lane_ld(c->n) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      compact_lane_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+                                const Coef* c, long long lines, void* stream) {
+  int limit;
+  cudaError_t err = lane_smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (lines + lines_per_block - 1) / lines_per_block;
-  compact_lane_kernel<<<(unsigned)blocks, threads, smem,
-                        (cudaStream_t)stream>>>(f, out, tab, *c, lines,
-                                                lines_per_block);
+  const size_t line_bytes = (size_t)lane_ld(c->n) * sizeof(float);
+  if (line_bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
+  int per_block = 32;
+  while (per_block > 1 && per_block * line_bytes > LANE_SMEM_DEFAULT) per_block /= 2;
+  const long long blocks = (lines + per_block - 1) / per_block;
+  compact_lane_kernel<<<(unsigned)blocks, LANE_THREADS, per_block * line_bytes,
+                        (cudaStream_t)stream>>>(f, out, tab, *c, lines, per_block);
   return (int)cudaGetLastError();
 }

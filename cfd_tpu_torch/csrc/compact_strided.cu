@@ -51,12 +51,14 @@ __global__ void compact_strided_kernel(const float* __restrict__ f,
   solve_line(c, tab, src, out + base, inner);
 }
 
+#define STRIDED_THREADS 128  // columns per block
+
 extern "C" int cfd_compact_strided(const float* f, float* out,
                                    const float* tab, const Coef* c,
                                    long long outer, long long inner,
-                                   int threads, void* stream) {
-  const long long blocks = (outer * inner + threads - 1) / threads;
-  compact_strided_kernel<<<(unsigned)blocks, threads, 0,
+                                   void* stream) {
+  const long long blocks = (outer * inner + STRIDED_THREADS - 1) / STRIDED_THREADS;
+  compact_strided_kernel<<<(unsigned)blocks, STRIDED_THREADS, 0,
                            (cudaStream_t)stream>>>(f, out, tab, *c, outer,
                                                    inner);
   return (int)cudaGetLastError();

@@ -34,17 +34,17 @@ RK3_B = (1.0 / 3.0, 15.0 / 16.0, 8.0 / 15.0)
 class Derivs:
     """A (dfdx, dfdy, dfdz) bundle.
 
-    ``gradient`` (f -> (fx, fy, fz)), when set, evaluates the three first
-    derivatives of the advection term. ``laplacian``, when set, is the
-    diffusion operator; the port's single-device bundle leaves it None, and
-    the model then differentiates the gradient once more.
+    ``gradient`` (f -> (fx, fy, fz)) evaluates the three first derivatives
+    of the advection term; the model differentiates them once more for the
+    diffusion term. ``laplacian`` is the place of a second-derivative
+    diffusion operator, which the port does not have yet: it stays None.
     """
 
     dfdx: Callable
     dfdy: Callable
     dfdz: Callable
+    gradient: Callable
     laplacian: Optional[Callable] = None
-    gradient: Optional[Callable] = None
 
     @classmethod
     def single_device(
@@ -74,15 +74,9 @@ class AdvectionDiffusion(nn.Module):
     def rhs(self, f: torch.Tensor, u) -> torch.Tensor:
         ux, uy, uz = u
         d = self.derivs
-        if d.gradient is not None:
-            fx, fy, fz = d.gradient(f)
-        else:
-            fx, fy, fz = d.dfdx(f), d.dfdy(f), d.dfdz(f)
+        fx, fy, fz = d.gradient(f)
         adv = ux * fx + uy * fy + uz * fz
-        if d.laplacian is not None:
-            lap = d.laplacian(f)
-        else:
-            lap = d.dfdx(fx) + d.dfdy(fy) + d.dfdz(fz)
+        lap = d.dfdx(fx) + d.dfdy(fy) + d.dfdz(fz)
         return -adv + self.nu * lap
 
     def step(self, f: torch.Tensor, u, dt: float) -> torch.Tensor:

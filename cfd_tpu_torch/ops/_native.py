@@ -29,7 +29,7 @@ import torch
 from ..schemes import CompactScheme, lhs_bands
 from . import tridiag
 
-__all__ = ["Coef", "build", "library", "kernel_tables", "launch_tables"]
+__all__ = ["Coef", "build", "library", "check", "kernel_tables", "launch_tables"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -103,11 +103,17 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     coef = ctypes.POINTER(Coef)
-    lib.cfd_compact_lane.argtypes = [p, p, p, coef, i64, i32, i32, p]
+    lib.cfd_compact_lane.argtypes = [p, p, p, coef, i64, p]
     lib.cfd_compact_lane.restype = i32
-    lib.cfd_compact_strided.argtypes = [p, p, p, coef, i64, i64, i32, p]
+    lib.cfd_compact_strided.argtypes = [p, p, p, coef, i64, i64, p]
     lib.cfd_compact_strided.restype = i32
     return lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise on the ``cudaError_t`` a kernel's C entry point returned."""
+    if err:
+        raise RuntimeError(f"{kernel} launch failed: {torch.cuda.CudaError(err)}")
 
 
 @functools.lru_cache(maxsize=None)

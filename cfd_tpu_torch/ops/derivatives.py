@@ -6,14 +6,14 @@ are ``[..., nz, ny, nx]`` with x the fastest axis, as in the JAX package.
 Methods:
 
 * ``"kernel"`` — the hand-written CUDA kernels: ``lane`` (K1) along the
-  last axis, ``strided`` (K2) along any other. float32 on the card; a CPU
-  tensor takes the kernels' plain version.
+  last axis, ``strided`` (K2) along any other. They take float32 on the
+  card and raise on anything else; a CPU tensor takes their plain version.
 * ``"matmul"`` — the plain version: the dense operator ``T^{-1} B``
   (``ops/dense.py``), any dtype, any device.
-* ``"auto"`` — ``"kernel"`` for a CUDA float32 tensor whose axis a kernel
-  takes, ``"matmul"`` for a CPU tensor, and an error for anything else on
-  the card: float64 runs there only when asked for with
-  ``method="matmul"``. bfloat16 is not supported yet.
+* ``"auto"`` — ``"matmul"`` for a CPU tensor, ``"kernel"`` for any other.
+  So a CUDA tensor that is not float32 raises: float64 runs on the card
+  only when asked for with ``method="matmul"``. bfloat16 is not supported
+  yet.
 """
 
 from __future__ import annotations
@@ -39,32 +39,13 @@ __all__ = [
 _METHODS = ("auto", "kernel", "matmul")
 
 
-def resolve_method(method: str, f: torch.Tensor, scheme: CompactScheme, axis: int) -> str:
-    """Resolve ``"auto"`` for this tensor, scheme and axis (see module doc)."""
+def resolve_method(method: str, f: torch.Tensor) -> str:
+    """Resolve ``"auto"`` for this tensor's device (see module doc)."""
     if method not in _METHODS:
         raise ValueError(f"unknown method {method!r}; expected one of {_METHODS}")
     if method != "auto":
         return method
-    if f.device.type == "cpu":
-        return "matmul"
-    if f.device.type != "cuda" or f.dtype != torch.float32:
-        raise ValueError(
-            f"method='auto' has no kernel for {f.dtype} on {f.device}; the "
-            "kernels take float32 on the card (pass method='matmul' for the "
-            "plain dense path)"
-        )
-    axis = axis % f.ndim
-    n = f.shape[axis]
-    if axis == f.ndim - 1:
-        ok = lane.lane_supported(scheme, n)
-    else:
-        ok = strided.strided_supported(scheme, n)
-    if not ok:
-        raise ValueError(
-            f"method='auto': no kernel for {scheme.name} lines of {n} "
-            f"(pass method='matmul' for the plain dense path)"
-        )
-    return "kernel"
+    return "matmul" if f.device.type == "cpu" else "kernel"
 
 
 def derivative(
@@ -82,8 +63,7 @@ def derivative(
             f"{scheme.derivative_order}; the port takes first derivatives only"
         )
     axis = axis % f.ndim
-    method = resolve_method(method, f, scheme, axis)
-    if method == "matmul":
+    if resolve_method(method, f) == "matmul":
         return dense_derivative(f, dx, scheme, axis)
     if axis == f.ndim - 1:
         return lane.lane_derivative(f, dx, scheme)

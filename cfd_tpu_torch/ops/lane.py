@@ -20,32 +20,9 @@ from ..schemes import CompactScheme
 from . import _native
 from .dense import dense_derivative
 
-__all__ = ["LAUNCHES", "lane_derivative", "lane_derivative_ref", "lane_supported"]
+__all__ = ["LAUNCHES", "lane_derivative", "lane_derivative_ref"]
 
 LAUNCHES = 0
-
-_THREADS = 128
-_AHEAD = 8  # CFD_AHEAD in csrc/compact_common.cuh
-_SMEM_DEFAULT = 48 * 1024  # bytes a block gets without opting in
-_SMEM_MAX = 232448  # bytes of shared memory one block can use on Hopper
-
-
-def row_stride(n: int) -> int:
-    """Shared-memory floats per staged line: n + wrap slots, made odd."""
-    return (n + _AHEAD + 1) | 1
-
-
-def lines_per_block(n: int) -> int:
-    """Lines a block stages: 32, halved until they fit 48 KB."""
-    lines = 32
-    while lines > 1 and lines * row_stride(n) * 4 > _SMEM_DEFAULT:
-        lines //= 2
-    return lines
-
-
-def lane_supported(scheme: CompactScheme, n: int) -> bool:
-    """Whether K1 takes lines of length ``n`` (one line must fit a block)."""
-    return n >= scheme.min_points() and row_stride(n) * 4 <= _SMEM_MAX
 
 
 def lane_derivative_ref(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
@@ -56,8 +33,9 @@ def lane_derivative_ref(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Ten
 def lane_derivative(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
     """Compact derivative of ``f`` along its last axis.
 
-    CUDA tensors must be float32 and contiguous and run the kernel; a
-    launch failure raises. CPU tensors take ``lane_derivative_ref``.
+    CUDA tensors must be float32 and contiguous and run the kernel; a line
+    too short for the scheme, or too long for one block's shared memory,
+    and a launch failure raise. CPU tensors take ``lane_derivative_ref``.
     """
     global LAUNCHES
     if f.device.type == "cpu":
@@ -71,13 +49,11 @@ def lane_derivative(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
     if f.ndim == 0:
         raise ValueError("compact_lane needs at least one axis")
     n = f.shape[-1]
-    if not lane_supported(scheme, n):
-        raise ValueError(f"compact_lane: no kernel for {scheme.name} lines of {n}")
+    coef, tab = _native.launch_tables(scheme, n, float(dx), f.device)
     out = torch.empty_like(f)
     lines = f.numel() // n
     if lines == 0:
         return out
-    coef, tab = _native.launch_tables(scheme, n, float(dx), f.device)
     with torch.cuda.device(f.device):
         err = _native.library().cfd_compact_lane(
             f.data_ptr(),
@@ -85,11 +61,8 @@ def lane_derivative(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
             tab.data_ptr(),
             ctypes.byref(coef),
             lines,
-            lines_per_block(n),
-            _THREADS,
             torch.cuda.current_stream().cuda_stream,
         )
-    if err:
-        raise RuntimeError(f"compact_lane launch failed: CUDA error {err}")
+    _native.check(err, "compact_lane")
     LAUNCHES += 1
     return out

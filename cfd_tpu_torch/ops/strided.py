@@ -24,21 +24,9 @@ from ..schemes import CompactScheme
 from . import _native
 from .dense import dense_derivative
 
-__all__ = [
-    "LAUNCHES",
-    "strided_derivative",
-    "strided_derivative_ref",
-    "strided_supported",
-]
+__all__ = ["LAUNCHES", "strided_derivative", "strided_derivative_ref"]
 
 LAUNCHES = 0
-
-_THREADS = 128
-
-
-def strided_supported(scheme: CompactScheme, n: int) -> bool:
-    """Whether K2 takes lines of length ``n``."""
-    return n >= scheme.min_points()
 
 
 def strided_derivative_ref(
@@ -53,8 +41,9 @@ def strided_derivative(
 ) -> torch.Tensor:
     """Compact derivative of ``f`` along ``axis``, any axis but the last.
 
-    CUDA tensors must be float32 and contiguous and run the kernel; a
-    launch failure raises. CPU tensors take ``strided_derivative_ref``.
+    CUDA tensors must be float32 and contiguous and run the kernel; a line
+    too short for the scheme and a launch failure raise. CPU tensors take
+    ``strided_derivative_ref``.
     """
     global LAUNCHES
     axis = axis % f.ndim
@@ -68,15 +57,12 @@ def strided_derivative(
         raise TypeError(f"compact_strided takes float32, got {f.dtype}")
     if not f.is_contiguous():
         raise ValueError("compact_strided takes a contiguous tensor")
-    n = f.shape[axis]
-    if not strided_supported(scheme, n):
-        raise ValueError(f"compact_strided: no kernel for {scheme.name} lines of {n}")
+    coef, tab = _native.launch_tables(scheme, f.shape[axis], float(dx), f.device)
     out = torch.empty_like(f)
     outer = math.prod(f.shape[:axis])
     inner = math.prod(f.shape[axis + 1 :])
     if outer * inner == 0:
         return out
-    coef, tab = _native.launch_tables(scheme, n, float(dx), f.device)
     with torch.cuda.device(f.device):
         err = _native.library().cfd_compact_strided(
             f.data_ptr(),
@@ -85,10 +71,8 @@ def strided_derivative(
             ctypes.byref(coef),
             outer,
             inner,
-            _THREADS,
             torch.cuda.current_stream().cuda_stream,
         )
-    if err:
-        raise RuntimeError(f"compact_strided launch failed: CUDA error {err}")
+    _native.check(err, "compact_strided")
     LAUNCHES += 1
     return out

@@ -315,33 +315,25 @@ def scheme_from_dict(d: dict) -> CompactScheme:
 
 
 def lhs_bands(
-    scheme: CompactScheme,
-    n: int,
-    *,
-    first_block: bool = True,
-    last_block: bool = True,
-    dtype=np.float64,
+    scheme: CompactScheme, n: int
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Return the (dl, d, du) bands of the scheme's LHS for an ``n``-row block.
+    """Return the float64 (dl, d, du) bands of the scheme's LHS for ``n`` rows.
 
-    ``first_block`` / ``last_block`` control whether closure rows are
-    installed at the top/bottom. dl[i] multiplies x[i-1] (dl[0] = 0), du[i]
-    multiplies x[i+1] (du[n-1] = 0). The cyclic corners of a periodic
-    scheme are not in the bands; the cyclic factor carries them.
+    Non-periodic schemes get their closure rows at both ends. dl[i]
+    multiplies x[i-1] (dl[0] = 0), du[i] multiplies x[i+1] (du[n-1] = 0).
+    The cyclic corners of a periodic scheme are not in the bands; the
+    cyclic factor carries them.
     """
     if n < scheme.min_points():
         raise ValueError(f"n={n} too small for scheme {scheme.name}")
-    dl = np.full(n, scheme.alpha, dtype=dtype)
-    d = np.ones(n, dtype=dtype)
-    du = np.full(n, scheme.alpha, dtype=dtype)
+    dl = np.full(n, scheme.alpha)
+    d = np.ones(n)
+    du = np.full(n, scheme.alpha)
     dl[0] = 0.0
     du[-1] = 0.0
     if not scheme.periodic:
-        rows = []
-        if first_block:
-            rows += [(j, row) for j, row in enumerate(scheme.left_rows)]
-        if last_block:
-            rows += [(n - 1 - j, row) for j, row in enumerate(scheme.right_rows)]
+        rows = [(j, row) for j, row in enumerate(scheme.left_rows)]
+        rows += [(n - 1 - j, row) for j, row in enumerate(scheme.right_rows)]
         for i, row in rows:
             a, b, c = row.lhs
             if i > 0:
@@ -352,9 +344,11 @@ def lhs_bands(
     return dl, d, du
 
 
-def rhs_matrix(scheme: CompactScheme, n: int, dtype=np.float64) -> np.ndarray:
-    """Dense (n, n) matrix B with RHS = B @ f / dx**order (oracle/test helper)."""
-    B = np.zeros((n, n), dtype=dtype)
+def rhs_matrix(scheme: CompactScheme, n: int) -> np.ndarray:
+    """Dense float64 (n, n) matrix B with RHS = B @ f / dx**order."""
+    if n < scheme.min_points():
+        raise ValueError(f"n={n} too small for scheme {scheme.name}")
+    B = np.zeros((n, n))
     s = scheme.rhs_sign
     c0 = scheme.rhs_center
     for k, w in zip(scheme.rhs_offsets, scheme.rhs_weights):

@@ -22,7 +22,8 @@ exits non-zero without printing the final line:
              method="auto" (the kernels), against the same steps on the
              plain float64 path, with the kernels' launch counts.
 6. times   — CUDA-event medians at 256^3: dfdx/dfdy/dfdz kernel and plain
-             float32 times, a copy floor and one RK3 step.
+             float32 times, a copy floor and one RK3 step; dfdx kernel and
+             plain times at (64, 64, 512).
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -51,6 +52,7 @@ from cfd_tpu_torch.ops import _native, lane, strided
 from cfd_tpu_torch.utils import cuda_time_ms
 
 N = 256
+N512 = (64, 64, 512)  # K1 in pallas_lane's roll-form regime (n > 256)
 GATE = 1e-5  # kernel vs plain float64, relative to max|ref| (f32 recurrence)
 SIN_GATE = 5e-4  # absolute, d/dx sin = cos at 256^3
 SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME6, ct.SCHEME6_PERIODIC]
@@ -153,7 +155,7 @@ def phase_kernels(dev) -> dict:
                          strided.strided_derivative_ref(f64, dx, scheme, axis), failures)
         del f64
     extra = [
-        ("compact_lane", (64, 64, 512), -1),  # n > 256: pallas_lane's roll-form regime
+        ("compact_lane", N512, -1),  # n > 256: pallas_lane's roll-form regime
         ("compact_lane", (3, 37, 256), -1),  # 111 lines: a ragged last block
         ("compact_strided", (5, 256, 100), 1),
         ("compact_strided", (100, 7, 9), 0),
@@ -224,6 +226,16 @@ def phase_slice(dev) -> dict:
     return launches
 
 
+def _turns(plain, kernel) -> dict:
+    """CUDA-event medians in turns (plain, kernel, kernel, plain), averaged."""
+    p1 = cuda_time_ms(plain)
+    k1 = cuda_time_ms(kernel)
+    k2 = cuda_time_ms(kernel)
+    p2 = cuda_time_ms(plain)
+    return {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+            "kernel_readings_ms": [k1, k2], "plain_readings_ms": [p1, p2]}
+
+
 def phase_times(dev, smi) -> dict:
     g = torch.Generator(device=dev).manual_seed(7)
     f = torch.randn((N, N, N), generator=g, device=dev)
@@ -233,13 +245,14 @@ def phase_times(dev, smi) -> dict:
     for axis, name in ((-1, "dfdx"), (-2, "dfdy"), (-3, "dfdz")):
         def run(method, axis=axis):
             return lambda: ct.derivative(f, dx, scheme, axis=axis, method=method)
-        # in turns: plain, kernel, kernel, plain
-        p1 = cuda_time_ms(run("matmul"))
-        k1 = cuda_time_ms(run("kernel"))
-        k2 = cuda_time_ms(run("kernel"))
-        p2 = cuda_time_ms(run("matmul"))
-        times[name] = {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-                       "kernel_readings_ms": [k1, k2], "plain_readings_ms": [p1, p2]}
+        times[name] = _turns(run("matmul"), run("kernel"))
+    # K1 at n = 512, pallas_lane's roll-form regime, at phase 3's shape
+    f512 = torch.randn(N512, generator=g, device=dev)
+    times["dfdx_512"] = _turns(
+        lambda: ct.dfdx(f512, 0.01, scheme, method="matmul"),
+        lambda: ct.dfdx(f512, 0.01, scheme, method="kernel"),
+    )
+    times["dfdx_512"]["shape"] = list(N512)
     out = torch.empty_like(f)
     copy_ms = cuda_time_ms(lambda: out.copy_(f))
     model, f0, u = _slice_setup(dev, "auto", torch.float32)

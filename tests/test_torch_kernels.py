@@ -111,16 +111,6 @@ def test_coef_struct_layout():
     assert c.scale == 4.0 and c.sign == -1.0 and c.center == 0.0
 
 
-def test_lines_per_block_fits_shared_memory():
-    assert lane.lines_per_block(256) == 32
-    assert lane.lines_per_block(512) == 16
-    for n in (64, 256, 512, 1000, 4096, 20000):
-        stride = lane.row_stride(n)
-        assert stride % 2 == 1 and stride >= n + 9  # odd: no bank conflicts
-        assert lane.lines_per_block(n) * stride * 4 <= 48 * 1024 or n > 12000
-    assert not lane.lane_supported(ct.SCHEME4, 60000)
-
-
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -169,11 +159,26 @@ def test_strided_kernel_matches_plain(cuda, scheme, axis, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scheme", [ct.SCHEME4, ct.SCHEME6], ids=["pade4", "lele6"])
+def test_lane_kernel_line_past_48kb(cuda, scheme):
+    """A line of 12288 floats (+ wrap slots) passes the 48 KB a block gets
+    without opting in: K1 stages one line per block in opted-in memory."""
+    n = 12288
+    g = torch.Generator(device="cpu").manual_seed(6)
+    f = torch.randn((3, n), generator=g)
+    got = lane.lane_derivative(f.to(cuda), 0.01, scheme).cpu().double()
+    ref = torch.from_numpy(ct.oracle.derivative_np(scheme, f.double().numpy(), 0.01, axis=1))
+    assert _rel_err(got, ref) <= F32_GATE
+
+
+@pytest.mark.gpu
 def test_kernels_refuse_what_they_do_not_take(cuda):
     f = torch.ones(4, 8, 64, device=cuda)
     with pytest.raises(TypeError):
         lane.lane_derivative(f.double(), 0.1, ct.SCHEME4)
     with pytest.raises(ValueError):
         strided.strided_derivative(f.transpose(0, 1), 0.1, ct.SCHEME4, 0)
-    with pytest.raises(ValueError):
+    with pytest.raises(TypeError):
         ct.dfdx(f.double(), 0.1)  # 'auto' on a float64 CUDA tensor
+    with pytest.raises(RuntimeError, match="compact_lane"):
+        lane.lane_derivative(torch.ones(2, 60000, device=cuda), 0.1, ct.SCHEME4)

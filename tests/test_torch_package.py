@@ -3,8 +3,9 @@
 * ``import cfd_tpu_torch`` (in a fresh process) loads no ``jax``;
 * importing ``ops._native`` needs no ``nvcc``: the kernels build at first
   use, and a build where no toolkit exists raises;
-* ``"auto"`` on a CPU tensor resolves to the plain path; on a device that
-  has no kernel, and on a CUDA float64 tensor (card only), it raises.
+* ``"auto"`` on a CPU tensor resolves to the plain path; on any other
+  device to the kernels, whose wrappers raise for a device that has no
+  kernel and for a CUDA float64 tensor (card only).
 """
 
 import os
@@ -66,15 +67,35 @@ def test_sources_are_present():
 
 def test_auto_on_cpu_is_plain():
     f = torch.zeros(8, 8, 16)
-    for axis in (-1, -2, -3):
-        assert resolve_method("auto", f, ct.SCHEME4, axis) == "matmul"
-    assert resolve_method("kernel", f, ct.SCHEME4, -1) == "kernel"
+    assert resolve_method("auto", f) == "matmul"
+    assert resolve_method("kernel", f) == "kernel"
+    assert resolve_method("auto", f.to("meta")) == "kernel"
+
+
+def test_unknown_method_raises():
+    with pytest.raises(ValueError, match="unknown method"):
+        resolve_method("pcr", torch.zeros(4))
+    with pytest.raises(ValueError, match="unknown method"):
+        ct.dfdx(torch.zeros(4, 16), 0.1, method="pallas")
+
+
+@pytest.mark.parametrize("method", ["auto", "kernel"])
+@pytest.mark.parametrize("axis", [-1, -2, -3])
+def test_cpu_kernel_route_is_the_plain_version(method, axis):
+    """On a CPU tensor every route returns the dense plain version, bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    f = torch.randn((12, 10, 16), generator=g, dtype=torch.float64)
+    got = ct.derivative(f, 0.3, ct.SCHEME6, axis=axis, method=method)
+    ref = ct.derivative(f, 0.3, ct.SCHEME6, axis=axis, method="matmul")
+    assert torch.equal(got, ref)
 
 
 def test_no_kernel_device_raises():
     f = torch.zeros(8, 8, 16, device="meta")
     with pytest.raises(ValueError):
-        resolve_method("auto", f, ct.SCHEME4, -1)
+        ct.dfdx(f, 0.1)
+    with pytest.raises(ValueError):
+        ct.dfdz(f, 0.1)
     with pytest.raises(ValueError):
         lane.lane_derivative(f, 0.1, ct.SCHEME4)
     with pytest.raises(ValueError):
@@ -83,14 +104,19 @@ def test_no_kernel_device_raises():
         strided.strided_derivative(torch.zeros(8, 8), 0.1, ct.SCHEME4, -1)
 
 
+def test_line_too_short_raises():
+    with pytest.raises(ValueError, match="too small"):
+        ct.dfdx(torch.zeros(4, 5), 0.1, ct.SCHEME6)
+
+
 @pytest.mark.gpu
 def test_auto_on_cuda_float64_raises():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     f = torch.zeros(8, 8, 16, dtype=torch.float64, device="cuda")
-    with pytest.raises(ValueError):
-        resolve_method("auto", f, ct.SCHEME4, -1)
-    with pytest.raises(ValueError):
+    assert resolve_method("auto", f) == "kernel"
+    with pytest.raises(TypeError):
         ct.dfdz(f, 0.1)
+    with pytest.raises(TypeError):
+        ct.dfdx(f, 0.1)
     assert ct.dfdz(f, 0.1, method="matmul").dtype == torch.float64
-    assert resolve_method("auto", f.float(), ct.SCHEME4, -1) == "kernel"
