@@ -1,17 +1,31 @@
 """cfd_tpu_torch — the PyTorch/CUDA port of cfd_tpu.
 
-Compact (Padé) first derivatives of 3-D scalar fields and the RK3
-advection–diffusion stepper, on PyTorch with hand-written CUDA kernels for
-Hopper (``csrc/``). The JAX package ``cfd_tpu`` beside it is the reference
+Compact (Padé) first and second derivatives of 3-D scalar fields, the
+compact-d2 Laplacian and the RK3 advection–diffusion stepper with its fused
+substep, on PyTorch with hand-written CUDA kernels for Hopper (``csrc/``). The JAX package ``cfd_tpu`` beside it is the reference
 the port is held against; this package never imports it or ``jax``.
 """
 
 from . import models, ops, oracle, schemes, utils
-from .ops import derivative, dfdx, dfdy, dfdz, gradient
+from .ops import (
+    d2fdx2,
+    d2fdy2,
+    d2fdz2,
+    derivative,
+    dfdx,
+    dfdy,
+    dfdz,
+    gradient,
+    laplacian,
+)
 from .schemes import (
     SCHEME4,
+    SCHEME4_D2,
+    SCHEME4_D2_PERIODIC,
     SCHEME4_PERIODIC,
     SCHEME6,
+    SCHEME6_D2,
+    SCHEME6_D2_PERIODIC,
     SCHEME6_PERIODIC,
     CompactScheme,
     get_scheme,
@@ -29,10 +43,18 @@ __all__ = [
     "dfdy",
     "dfdz",
     "gradient",
+    "d2fdx2",
+    "d2fdy2",
+    "d2fdz2",
+    "laplacian",
     "SCHEME4",
     "SCHEME4_PERIODIC",
     "SCHEME6",
     "SCHEME6_PERIODIC",
+    "SCHEME4_D2",
+    "SCHEME4_D2_PERIODIC",
+    "SCHEME6_D2",
+    "SCHEME6_D2_PERIODIC",
     "CompactScheme",
     "get_scheme",
     "scheme_from_dict",

@@ -2,9 +2,10 @@
 // a float32 field viewed as (lines, n).
 //
 // Replaces: cfd_tpu/ops/pallas_lane.py `_lane_fold_kernel` (the fold form,
-// n <= 256) and `_lane_kernel` (the roll form, n > 256), first derivative.
-// It computes what they compute, T f' = B f / dx with the scheme's interior
-// stencil, closure rows and periodic wrap, as one Thomas solve per line
+// n <= 256; first and second derivatives) and `_lane_kernel` (the roll
+// form, n > 256; first derivative). It computes what they compute,
+// T f' = B f / dx**order with the scheme's interior stencil, closure rows
+// and periodic wrap, as one Thomas solve per line
 // (plus a Sherman–Morrison rank-1 term on periodic lines), not their
 // block-matrix algebra for the TPU's matrix unit.
 //

@@ -3,11 +3,12 @@
 // axis: dfdy is (nz, ny, nx), dfdz is (1, nz, ny * nx).
 //
 // Replaces: cfd_tpu/ops/pallas_sublane.py `_sublane_kernel` (roll form along
-// the second-minor axis, dfdy) and cfd_tpu/ops/pallas_leading.py
-// `_leading_kernel` in its plain derivative mode (dfdz), first derivative.
-// The TPU needed two kernels because its (8, 128) tiling treats the
-// second-minor and the leading axis differently; on Hopper both are the
-// same strided walk with x contiguous. It computes T f' = B f / dx with the
+// the second-minor axis, dfdy) and `_sublane_fold_kernel` (fold form, d2y),
+// and cfd_tpu/ops/pallas_leading.py `_leading_kernel` in its plain
+// derivative mode (dfdz; d2z, which the JAX package sends to a dense
+// product). The TPU needed these kernels because its (8, 128) tiling treats
+// the second-minor and the leading axis differently; on Hopper both are the
+// same strided walk with x contiguous. It computes T f' = B f / dx**order with the
 // scheme's interior stencil, closure rows and periodic wrap as one Thomas
 // solve per line (plus a Sherman–Morrison rank-1 term on periodic lines).
 //

@@ -5,10 +5,14 @@ The port of ``cfd_tpu/models/advection_diffusion.py``. It advances
     df/dt = -(u . grad f) + nu * laplacian(f)
 
 with low-storage RK3 (Williamson coefficients), every spatial derivative a
-compact first derivative of this package. The diffusion term is the
-repeated first derivative ``dfdx(fx) + dfdy(fy) + dfdz(fz)``: the port has
-no second-derivative scheme path and no fused substep yet, so a step is
-3 substeps x 6 single-axis derivatives plus PyTorch's elementwise tail.
+compact derivative of this package. The diffusion term is the compact
+second-derivative ``laplacian`` when the ``Derivs`` bundle carries one
+(``second_derivative=True``), and the repeated first derivative
+``dfdx(fx) + dfdy(fy) + dfdz(fz)`` otherwise. The generic step is 3
+substeps x (3 first derivatives + the diffusion term) plus PyTorch's
+elementwise tail. With a periodic d2 scheme and ``method="auto"`` the
+bundle also carries the fused substep (``ops/fused_step.py``): two kernels
+per substep, K3 and K4, and no elementwise passes.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import torch
 from torch import nn
 
 from ..ops import derivatives as single
-from ..schemes import SCHEME4_PERIODIC, CompactScheme
+from ..ops.fused_step import make_fused_substep
+from ..schemes import SCHEME4_PERIODIC, CompactScheme, get_scheme
 
 __all__ = ["AdvectionDiffusion", "Derivs", "state_from_numpy"]
 
@@ -35,9 +40,12 @@ class Derivs:
     """A (dfdx, dfdy, dfdz) bundle.
 
     ``gradient`` (f -> (fx, fy, fz)) evaluates the three first derivatives
-    of the advection term; the model differentiates them once more for the
-    diffusion term. ``laplacian`` is the place of a second-derivative
-    diffusion operator, which the port does not have yet: it stays None.
+    of the advection term. ``laplacian``, when set, is the diffusion
+    operator (compact second derivatives); when None the model
+    differentiates the gradient once more. ``fused_substep``, when set, is
+    ``(f, u, q, dt, nu, a, b, last) -> (q', f')``, one whole RK3 substep
+    (``ops/fused_step.py``), which the model's step then runs instead of
+    its generic form.
     """
 
     dfdx: Callable
@@ -45,21 +53,39 @@ class Derivs:
     dfdz: Callable
     gradient: Callable
     laplacian: Optional[Callable] = None
+    fused_substep: Optional[Callable] = None
 
     @classmethod
     def single_device(
-        cls, spacing, scheme: CompactScheme = SCHEME4_PERIODIC, method: str = "auto"
+        cls,
+        spacing,
+        scheme: CompactScheme = SCHEME4_PERIODIC,
+        method: str = "auto",
+        second_derivative: bool = False,
     ):
-        """First-derivative bundle over ``ops.derivatives``.
+        """Bundle over ``ops.derivatives``; ``spacing`` is a scalar or
+        (dz, dy, dx).
 
-        ``spacing`` is a scalar or (dz, dy, dx).
+        ``second_derivative=True`` adds a compact-d2 ``laplacian`` of the
+        same order and periodicity as ``scheme`` and, for ``method="auto"``
+        and a first-derivative ``scheme``, the fused substep, which exists
+        for periodic schemes only.
         """
         dz, dy, dx = single.spacings3(spacing)
+        lap = None
+        fused = None
+        if second_derivative:
+            d2 = get_scheme(scheme.order, scheme.periodic, derivative=2)
+            lap = lambda f: single.laplacian(f, (dz, dy, dx), d2, method=method)
+            if method == "auto" and scheme.derivative_order == 1:
+                fused = make_fused_substep((dz, dy, dx), scheme, d2)
         return cls(
             dfdx=lambda f: single.dfdx(f, dx, scheme, method=method),
             dfdy=lambda f: single.dfdy(f, dy, scheme, method=method),
             dfdz=lambda f: single.dfdz(f, dz, scheme, method=method),
             gradient=lambda f: single.gradient(f, (dz, dy, dx), scheme, method=method),
+            laplacian=lap,
+            fused_substep=fused,
         )
 
 
@@ -76,11 +102,22 @@ class AdvectionDiffusion(nn.Module):
         d = self.derivs
         fx, fy, fz = d.gradient(f)
         adv = ux * fx + uy * fy + uz * fz
-        lap = d.dfdx(fx) + d.dfdy(fy) + d.dfdz(fz)
+        if d.laplacian is not None:
+            lap = d.laplacian(f)
+        else:
+            lap = d.dfdx(fx) + d.dfdy(fy) + d.dfdz(fz)
         return -adv + self.nu * lap
 
     def step(self, f: torch.Tensor, u, dt: float) -> torch.Tensor:
         """One low-storage RK3 step."""
+        fs = self.derivs.fused_substep
+        if fs is not None:
+            q = None  # the first substep has no q (a == 0)
+            last = len(RK3_A) - 1
+            for i, (a, b) in enumerate(zip(RK3_A, RK3_B)):
+                # q' is dead after the last substep: K4 skips writing it
+                q, f = fs(f, u, q, dt, self.nu, a, b, last=i == last)
+            return f
         q = torch.zeros_like(f)
         for a, b in zip(RK3_A, RK3_B):
             q = a * q + dt * self.rhs(f, u)

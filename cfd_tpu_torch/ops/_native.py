@@ -1,12 +1,12 @@
 """Build, load and feed the port's CUDA kernels.
 
 The kernels (``cfd_tpu_torch/csrc/*.cu``) are compiled at first use with
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, loaded with ``ctypes``. The library lands in
-``cfd_tpu_torch/_build/`` under a name keyed by a hash of the sources and
-flags, so a changed source builds anew and an unchanged one is reused.
-Importing this module builds nothing and needs no ``nvcc``; only
-``library()`` does.
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per source, all started
+together, and linked into one shared library with a plain C interface,
+loaded with ``ctypes``. The library lands in ``cfd_tpu_torch/_build/``
+under a name keyed by a hash of the sources and flags, so a changed source
+builds anew and an unchanged one is reused. Importing this module builds
+nothing and needs no ``nvcc``; only ``library()`` does.
 
 ``kernel_tables`` turns a scheme into the kernels' inputs: the ``Coef``
 struct (mirroring ``csrc/compact_common.cuh`` field by field) and the
@@ -29,16 +29,25 @@ import torch
 from ..schemes import CompactScheme, lhs_bands
 from . import tridiag
 
-__all__ = ["Coef", "build", "library", "check", "kernel_tables", "launch_tables"]
+__all__ = [
+    "Coef",
+    "build",
+    "library",
+    "check",
+    "check_operands",
+    "check_order",
+    "kernel_tables",
+    "launch_tables",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("compact_lane.cu", "compact_strided.cu")
+SOURCES = ("compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu")
 HEADERS = ("compact_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 MAX_K, MAX_ROWS, MAX_TAPS = 3, 3, 8
@@ -53,6 +62,7 @@ class Coef(ctypes.Structure):
         ("periodic", ctypes.c_int),
         ("n_rows", ctypes.c_int),
         ("n_taps", ctypes.c_int),
+        ("diff2", ctypes.c_int),
         ("w", ctypes.c_float * MAX_K),
         ("sign", ctypes.c_float),
         ("center", ctypes.c_float),
@@ -87,13 +97,35 @@ def build() -> Path:
     lib = BUILD_DIR / f"libcfd_torch_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    compiles = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for s, o in zip(SOURCES, objs)
+    ]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({done.returncode}):\n{done.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    try:
+        for source, proc in zip(SOURCES, compiles):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source} ({proc.returncode}):\n{err}")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        done = subprocess.run(link, capture_output=True, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({done.returncode}):\n{done.stderr}")
+        os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    finally:
+        for proc in compiles:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for o in objs:
+            o.unlink(missing_ok=True)
     return lib
 
 
@@ -107,6 +139,11 @@ def library() -> ctypes.CDLL:
     lib.cfd_compact_lane.restype = i32
     lib.cfd_compact_strided.argtypes = [p, p, p, coef, i64, i64, p]
     lib.cfd_compact_strided.restype = i32
+    lib.cfd_adv_lap.argtypes = [p] * 11 + [coef] * 4 + [i32, i32, p]
+    lib.cfd_adv_lap.restype = i32
+    f32 = ctypes.c_float
+    lib.cfd_rk3_mega.argtypes = [p] * 9 + [coef, coef, f32, f32, f32, f32, i32, i64, p]
+    lib.cfd_rk3_mega.restype = i32
     return lib
 
 
@@ -116,6 +153,32 @@ def check(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} launch failed: {torch.cuda.CudaError(err)}")
 
 
+def check_order(scheme: CompactScheme) -> None:
+    """Raise unless ``scheme`` is a first or second derivative: the kernels'
+    tables serve filters too, but the port has not taken them up yet."""
+    if scheme.derivative_order not in (1, 2):
+        raise ValueError(
+            f"scheme {scheme.name!r} has derivative_order="
+            f"{scheme.derivative_order}; the port takes first and second "
+            "derivatives (filters are not ported yet)"
+        )
+
+
+def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous float32 CUDA tensor on the
+    first one's device: what every kernel takes."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernel}: no kernel for device {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{kernel}: operands on {dev} and {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel} takes float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} takes contiguous tensors")
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_tables(scheme: CompactScheme, n: int):
     """(coefficients without the dx scale, per-point table (5, n)), float64.
@@ -123,7 +186,9 @@ def kernel_tables(scheme: CompactScheme, n: int):
     The per-point rows are the Thomas multipliers ``w``, ``invd`` and
     ``du`` of the (cyclic-core) LHS; for periodic schemes also the
     Sherman–Morrison ``q`` and row 0 of U^{-1} (``p``), which lets the
-    kernels apply the rank-1 term during the backward sweep.
+    kernels apply the rank-1 term during the backward sweep. A second
+    derivative's closure rows are given over second differences
+    (``diff2``, ``second_differences``; see ``csrc/compact_common.cuh``).
     """
     if scheme.stencil_width > MAX_K or scheme.n_closure > MAX_ROWS:
         raise ValueError(f"scheme {scheme.name} is wider than the kernels take")
@@ -155,6 +220,7 @@ def kernel_tables(scheme: CompactScheme, n: int):
     taps = max([len(r.rhs_stencil) for r in scheme.left_rows] + [0])
     if taps > MAX_TAPS:
         raise ValueError(f"scheme {scheme.name}: closure rows wider than {MAX_TAPS}")
+    diff2 = scheme.derivative_order == 2 and taps > 0
     for side, rows in (("left", scheme.left_rows), ("right", scheme.right_rows)):
         st = np.zeros((MAX_ROWS, MAX_TAPS))
         for j, row in enumerate(rows):
@@ -162,9 +228,29 @@ def kernel_tables(scheme: CompactScheme, n: int):
         sums = st.sum(axis=1)
         # a derivative row annihilates constants: keep its sum exactly 0
         sums[np.abs(sums) < 1e-12] = 0.0
+        if diff2:
+            st, sums = np.stack([second_differences(r) for r in st]), np.zeros(MAX_ROWS)
         coef[side], coef[side + "_sum"] = st, sums
-    coef.update(n_rows=scheme.n_closure, n_taps=taps)
+    coef.update(n_rows=scheme.n_closure, n_taps=taps - 2 if diff2 else taps, diff2=int(diff2))
     return coef, tab
+
+
+def second_differences(row: np.ndarray) -> np.ndarray:
+    """Weights d of ``row`` c over second differences: c_m = d_m - 2 d_{m-1}
+    + d_{m-2}, so sum_m c_m f_m = sum_m d_m (f_m - 2 f_{m+1} + f_{m+2}).
+
+    Exists for a row that annihilates constants and linear functions, as a
+    second derivative's closure row does; raises otherwise.
+    """
+    d = np.zeros_like(row)
+    for m in range(len(row) - 2):
+        d[m] = row[m] + (2.0 * d[m - 1] if m >= 1 else 0.0) - (d[m - 2] if m >= 2 else 0.0)
+    back = d.copy()
+    back[1:] -= 2.0 * d[:-1]
+    back[2:] += d[:-2]
+    if np.abs(back - row).max() > 1e-12 * max(1.0, np.abs(row).max()):
+        raise ValueError("closure row does not annihilate linear functions")
+    return d
 
 
 def _fill(coef: dict, scale: float) -> Coef:

@@ -6,6 +6,11 @@ matrix product along the axis is the same function as the kernels, with no
 recurrence in it. It serves ``method="matmul"``, every tensor on the CPU,
 and the float64 reference that the kernels are held against on the card
 (with ``torch.backends.cuda.matmul.allow_tf32 = False`` for float32).
+
+The fused substep's plain versions (``ops/adv_lap.py``, ``ops/megastep.py``)
+apply the scheme's two sides on their own as well: ``dense_apply`` takes
+``"derivative"`` (T^{-1} B), ``"rhs"`` (B), ``"lhs"`` (T) or
+``"lhs_inverse"`` (T^{-1}).
 """
 
 from __future__ import annotations
@@ -18,25 +23,57 @@ import torch
 
 from ..schemes import CompactScheme, lhs_bands, rhs_matrix
 
-__all__ = ["dense_operator", "dense_derivative"]
+__all__ = ["lhs_matrix", "dense_operator", "dense_apply", "dense_derivative"]
 
 
 @functools.lru_cache(maxsize=None)
-def dense_operator(scheme: CompactScheme, n: int) -> np.ndarray:
-    """Dense derivative operator M = T^{-1} B (float64 numpy, (n, n))."""
-    B = rhs_matrix(scheme, n)
+def lhs_matrix(scheme: CompactScheme, n: int) -> np.ndarray:
+    """Dense LHS T (float64 numpy, (n, n)), with the cyclic corners."""
     dl, d, du = lhs_bands(scheme, n)
     T = np.diag(d) + np.diag(dl[1:], -1) + np.diag(du[:-1], 1)
     if scheme.periodic:
         T[0, -1] = scheme.alpha
         T[-1, 0] = scheme.alpha
-    return np.linalg.solve(T, B)
+    return T
+
+
+@functools.lru_cache(maxsize=None)
+def dense_operator(scheme: CompactScheme, n: int) -> np.ndarray:
+    """Dense derivative operator M = T^{-1} B (float64 numpy, (n, n))."""
+    return np.linalg.solve(lhs_matrix(scheme, n), rhs_matrix(scheme, n))
+
+
+_MATRICES = {
+    "derivative": dense_operator,
+    "rhs": rhs_matrix,
+    "lhs": lhs_matrix,
+    "lhs_inverse": lambda scheme, n: np.linalg.inv(lhs_matrix(scheme, n)),
+}
 
 
 @functools.lru_cache(maxsize=64)
-def _scaled_operator(scheme, n, dx, dtype, device):
-    M = dense_operator(scheme, n) / float(dx) ** scheme.derivative_order
+def _scaled_matrix(kind, scheme, n, div, dtype, device):
+    M = _MATRICES[kind](scheme, n) / div
     return torch.as_tensor(M, dtype=dtype, device=device)
+
+
+def dense_apply(
+    kind: str, f: torch.Tensor, scheme: CompactScheme, axis: int, div: float = 1.0
+) -> torch.Tensor:
+    """One of the scheme's (n, n) matrices (see module doc), divided by
+    ``div``, applied along ``axis`` of ``f``.
+
+    Returns a contiguous tensor of ``f``'s shape, dtype and device.
+    """
+    axis = axis % f.ndim
+    n = f.shape[axis]
+    M = _scaled_matrix(kind, scheme, n, float(div), f.dtype, f.device)
+    if axis == f.ndim - 1:
+        out = f.reshape(-1, n) @ M.T
+    else:
+        outer = math.prod(f.shape[:axis])
+        out = M @ f.reshape(outer, n, -1)
+    return out.reshape(f.shape)
 
 
 def dense_derivative(f: torch.Tensor, dx, scheme: CompactScheme, axis: int) -> torch.Tensor:
@@ -44,12 +81,5 @@ def dense_derivative(f: torch.Tensor, dx, scheme: CompactScheme, axis: int) -> t
 
     Returns a contiguous tensor of ``f``'s shape, dtype and device.
     """
-    axis = axis % f.ndim
-    n = f.shape[axis]
-    M = _scaled_operator(scheme, n, float(dx), f.dtype, f.device)
-    if axis == f.ndim - 1:
-        out = f.reshape(-1, n) @ M.T
-    else:
-        outer = math.prod(f.shape[:axis])
-        out = M @ f.reshape(outer, n, -1)
-    return out.reshape(f.shape)
+    div = float(dx) ** scheme.derivative_order
+    return dense_apply("derivative", f, scheme, axis, div)

@@ -1,7 +1,9 @@
 """Single-device compact derivative API.
 
-The port of ``cfd_tpu/ops/derivatives.py``, first derivatives only. Fields
-are ``[..., nz, ny, nx]`` with x the fastest axis, as in the JAX package.
+The port of ``cfd_tpu/ops/derivatives.py``: first and second derivatives,
+``gradient`` and the second-derivative ``laplacian``. Fields are
+``[..., nz, ny, nx]`` with x the fastest axis, as in the JAX package.
+Filters (``derivative_order=0``) are not ported yet and raise.
 
 Methods:
 
@@ -22,8 +24,8 @@ from typing import Tuple
 
 import torch
 
-from ..schemes import SCHEME4, CompactScheme
-from . import lane, strided
+from ..schemes import SCHEME4, SCHEME4_D2, CompactScheme
+from . import _native, lane, strided
 from .dense import dense_derivative, dense_operator
 
 __all__ = [
@@ -33,7 +35,11 @@ __all__ = [
     "dfdx",
     "dfdy",
     "dfdz",
+    "d2fdx2",
+    "d2fdy2",
+    "d2fdz2",
     "gradient",
+    "laplacian",
 ]
 
 _METHODS = ("auto", "kernel", "matmul")
@@ -56,12 +62,9 @@ def derivative(
     axis: int = -1,
     method: str = "auto",
 ) -> torch.Tensor:
-    """Compact first derivative of ``f`` along ``axis`` with spacing ``dx``."""
-    if scheme.derivative_order != 1:
-        raise ValueError(
-            f"scheme {scheme.name!r} has derivative_order="
-            f"{scheme.derivative_order}; the port takes first derivatives only"
-        )
+    """Compact derivative of ``f`` along ``axis`` with spacing ``dx``: the
+    first or second derivative, as ``scheme.derivative_order`` says."""
+    _native.check_order(scheme)
     axis = axis % f.ndim
     if resolve_method(method, f) == "matmul":
         return dense_derivative(f, dx, scheme, axis)
@@ -83,6 +86,31 @@ def dfdy(f, dy, scheme: CompactScheme = SCHEME4, *, method: str = "auto"):
 def dfdz(f, dz, scheme: CompactScheme = SCHEME4, *, method: str = "auto"):
     """d/dz — derivative along the third-to-last axis."""
     return derivative(f, dz, scheme, axis=-3, method=method)
+
+
+def _d2_scheme(scheme: CompactScheme) -> CompactScheme:
+    if scheme.derivative_order != 2:
+        raise ValueError(
+            f"scheme {scheme.name!r} is a derivative_order="
+            f"{scheme.derivative_order} scheme; second-derivative ops need a "
+            "derivative_order=2 scheme (e.g. get_scheme(4, derivative=2))"
+        )
+    return scheme
+
+
+def d2fdx2(f, dx, scheme: CompactScheme = SCHEME4_D2, *, method: str = "auto"):
+    """d²/dx² — compact second derivative along the last axis."""
+    return derivative(f, dx, _d2_scheme(scheme), axis=-1, method=method)
+
+
+def d2fdy2(f, dy, scheme: CompactScheme = SCHEME4_D2, *, method: str = "auto"):
+    """d²/dy² — compact second derivative along the second-to-last axis."""
+    return derivative(f, dy, _d2_scheme(scheme), axis=-2, method=method)
+
+
+def d2fdz2(f, dz, scheme: CompactScheme = SCHEME4_D2, *, method: str = "auto"):
+    """d²/dz² — compact second derivative along the third-to-last axis."""
+    return derivative(f, dz, _d2_scheme(scheme), axis=-3, method=method)
 
 
 def spacings3(spacing) -> Tuple[float, float, float]:
@@ -109,4 +137,28 @@ def gradient(
         dfdx(f, dx, scheme, method=method),
         dfdy(f, dy, scheme, method=method),
         dfdz(f, dz, scheme, method=method),
+    )
+
+
+def laplacian(
+    f: torch.Tensor,
+    spacing,
+    scheme: CompactScheme = SCHEME4_D2,
+    *,
+    method: str = "auto",
+) -> torch.Tensor:
+    """Laplacian of ``[..., nz, ny, nx]`` by compact second derivatives.
+
+    The sum of the three single-axis second derivatives (one solve per
+    axis); ``spacing`` is a scalar or (dz, dy, dx). This is the JAX
+    function's form off the TPU; its TPU-only routes that share reads
+    between the axes (``d2_pair_sum``, ``lap_rhs`` + ``leading_solve``)
+    are not ported.
+    """
+    scheme = _d2_scheme(scheme)
+    dz, dy, dx = spacings3(spacing)
+    return (
+        d2fdx2(f, dx, scheme, method=method)
+        + d2fdy2(f, dy, scheme, method=method)
+        + d2fdz2(f, dz, scheme, method=method)
     )

@@ -1,9 +1,11 @@
-"""Compact derivative along the contiguous last axis (d/dx): kernel K1.
+"""Compact derivative along the contiguous last axis (d/dx, d²/dx²): kernel K1.
 
 The port of ``cfd_tpu/ops/pallas_lane.py``. On a CUDA float32 tensor
 ``lane_derivative`` launches ``compact_lane`` (``csrc/compact_lane.cu``),
-which replaces both of that module's first-derivative kernels (the fold
-form ``_lane_fold_kernel`` and the roll form ``_lane_kernel``). On a CPU
+which replaces both of that module's derivative kernels: the fold form
+``_lane_fold_kernel`` (first and second derivatives) and the roll form
+``_lane_kernel`` (first). The scheme's tables select the derivative;
+filters (``derivative_order=0``) are not ported yet and raise. On a CPU
 tensor it returns ``lane_derivative_ref``, the plain PyTorch version.
 
 ``LAUNCHES`` counts kernel launches, so that a run can show that its path
@@ -31,21 +33,17 @@ def lane_derivative_ref(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Ten
 
 
 def lane_derivative(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
-    """Compact derivative of ``f`` along its last axis.
+    """Compact first or second derivative of ``f`` along its last axis.
 
     CUDA tensors must be float32 and contiguous and run the kernel; a line
     too short for the scheme, or too long for one block's shared memory,
     and a launch failure raise. CPU tensors take ``lane_derivative_ref``.
     """
     global LAUNCHES
+    _native.check_order(scheme)
     if f.device.type == "cpu":
         return lane_derivative_ref(f, dx, scheme)
-    if f.device.type != "cuda":
-        raise ValueError(f"lane_derivative: no kernel for device {f.device}")
-    if f.dtype != torch.float32:
-        raise TypeError(f"compact_lane takes float32, got {f.dtype}")
-    if not f.is_contiguous():
-        raise ValueError("compact_lane takes a contiguous tensor")
+    _native.check_operands("compact_lane", f)
     if f.ndim == 0:
         raise ValueError("compact_lane needs at least one axis")
     n = f.shape[-1]

@@ -1,4 +1,5 @@
-"""Compact derivative along any strided axis (d/dy, d/dz): kernel K2.
+"""Compact derivative along any strided axis (d/dy, d/dz and their second
+derivatives): kernel K2.
 
 The port of ``cfd_tpu/ops/pallas_sublane.py`` and
 ``cfd_tpu/ops/pallas_leading.py``. The field is viewed as
@@ -6,9 +7,10 @@ The port of ``cfd_tpu/ops/pallas_sublane.py`` and
 ``(nz, ny, nx)`` field, y is ``(nz, ny, nx)`` and z is ``(1, nz, ny*nx)``.
 On a CUDA float32 tensor ``strided_derivative`` launches
 ``compact_strided`` (``csrc/compact_strided.cu``), which replaces
-``_sublane_kernel`` and the plain derivative mode of ``_leading_kernel``.
-On a CPU tensor it returns ``strided_derivative_ref``, the plain PyTorch
-version.
+``_sublane_kernel`` (first derivatives), ``_sublane_fold_kernel`` (second
+derivatives) and the plain derivative mode of ``_leading_kernel``. Filters
+(``derivative_order=0``) are not ported yet and raise. On a CPU tensor it
+returns ``strided_derivative_ref``, the plain PyTorch version.
 
 ``LAUNCHES`` counts kernel launches; nothing but the launch adds to it.
 """
@@ -39,24 +41,21 @@ def strided_derivative_ref(
 def strided_derivative(
     f: torch.Tensor, dx, scheme: CompactScheme, axis: int
 ) -> torch.Tensor:
-    """Compact derivative of ``f`` along ``axis``, any axis but the last.
+    """Compact first or second derivative of ``f`` along ``axis``, any axis
+    but the last.
 
     CUDA tensors must be float32 and contiguous and run the kernel; a line
     too short for the scheme and a launch failure raise. CPU tensors take
     ``strided_derivative_ref``.
     """
     global LAUNCHES
+    _native.check_order(scheme)
     axis = axis % f.ndim
     if axis == f.ndim - 1:
         raise ValueError("the last axis is contiguous: use lane_derivative")
     if f.device.type == "cpu":
         return strided_derivative_ref(f, dx, scheme, axis)
-    if f.device.type != "cuda":
-        raise ValueError(f"strided_derivative: no kernel for device {f.device}")
-    if f.dtype != torch.float32:
-        raise TypeError(f"compact_strided takes float32, got {f.dtype}")
-    if not f.is_contiguous():
-        raise ValueError("compact_strided takes a contiguous tensor")
+    _native.check_operands("compact_strided", f)
     coef, tab = _native.launch_tables(scheme, f.shape[axis], float(dx), f.device)
     out = torch.empty_like(f)
     outer = math.prod(f.shape[:axis])

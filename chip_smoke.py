@@ -5,25 +5,34 @@ Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure raises and the script
-exits non-zero without printing the final line:
+Phases, each printing one JSON line per case; any failure raises and the
+script exits non-zero without printing the final line:
 
-1. device  — a CUDA card must be present; its name and power limit as
-             nvidia-smi reports them; TF32 off for every float32 product.
-2. build   — nvcc builds kernels K1 (compact_lane) and K2 (compact_strided)
-             for sm_90a from cfd_tpu_torch/csrc/.
-3. kernels — each kernel against its plain PyTorch version (the dense
-             operator, float64, on the same float32 input) at 256^3 for the
-             four first-derivative schemes, on a seeded random field and a
-             smooth one; K1 also at n=512 and both on ragged shapes. Gate:
-             max|err| <= 1e-5 * max|ref|.
-4. accuracy — dfdx of sin(x) at 256^3 against cos(x): max|err| < 5e-4.
-5. slice   — 5 RK3 advection–diffusion steps at 256^3 float32 through
-             method="auto" (the kernels), against the same steps on the
-             plain float64 path, with the kernels' launch counts.
-6. times   — CUDA-event medians at 256^3: dfdx/dfdy/dfdz kernel and plain
-             float32 times, a copy floor and one RK3 step; dfdx kernel and
-             plain times at (64, 64, 512).
+1. device   — a CUDA card must be present; its name and power limit as
+              nvidia-smi reports them; TF32 off for every float32 product.
+2. build    — nvcc builds kernels K1 (compact_lane), K2 (compact_strided),
+              K3 (adv_lap) and K4 (rk3_mega) for sm_90a from
+              cfd_tpu_torch/csrc/, one nvcc per source, in parallel.
+3. kernels  — each kernel against its plain PyTorch version (dense
+              operators, float64, on the same float32 inputs):
+              K1/K2 at 256^3 for the four first- and the four
+              second-derivative schemes, on a seeded random field and a
+              smooth one, and on ragged shapes; K3 and K4 at 256^3 for the
+              two periodic scheme pairs (K4 on the first, a middle and the
+              last substep) and at (40, 96, 200). Gate: max|err| <= 1e-5 *
+              max|ref|, 5e-5 for second derivatives with closure rows.
+4. accuracy — dfdx of sin(x) against cos(x) (5e-4) and d2fdx2 of sin(x)
+              against -sin(x) (2e-3), at 256^3.
+5. slices   — 5 RK3 advection–diffusion steps at 256^3 float32 through
+              method="auto", each against the same steps on the plain
+              float64 path, with the kernels' launch counts: slice 1 (first
+              derivatives, K1 + K2), slice 2 fused (SCHEME4_PERIODIC with
+              the compact-d2 Laplacian: K3 + K4), slice 2 non-periodic
+              (SCHEME4 with the d2 Laplacian: no fused substep, K1 + K2).
+6. times    — CUDA-event medians at 256^3, in turns: each kernel against
+              its plain float32 version (and a single PyTorch matmul where
+              one computes the same function), a copy floor, and the RK3
+              step of each configuration.
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -31,6 +40,7 @@ The second-to-last line is the per-kernel summary; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -48,33 +58,74 @@ from cfd_tpu_torch.models import (
     sine_field,
     taylor_green,
 )
-from cfd_tpu_torch.ops import _native, lane, strided
+from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, megastep, strided
 from cfd_tpu_torch.utils import cuda_time_ms
 
 N = 256
 N512 = (64, 64, 512)  # K1 in pallas_lane's roll-form regime (n > 256)
+RAGGED = (40, 96, 200)  # no multiple of 32 or 128 on any axis
 GATE = 1e-5  # kernel vs plain float64, relative to max|ref| (f32 recurrence)
+# Second derivatives with closure rows (pade4_d2, lele6_d2): rounding the
+# exact RHS once to float32 and solving in float64 already leaves ~1.1e-5 of
+# max|f''| on a smooth field at n = 256, because the corner of T^{-1} (LHS
+# closures (1, 11) and (1, 137/13), pivots -0.1 and -0.05 on row 1)
+# amplifies the wall rows' rounding ~15x (tests/test_torch_kernels.py).
+# They take the gate the JAX package's fold kernels meet on d2 (5e-5).
+D2_WALL_GATE = 5e-5
 SIN_GATE = 5e-4  # absolute, d/dx sin = cos at 256^3
-SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME6, ct.SCHEME6_PERIODIC]
+# Absolute, d2/dx2 sin = -sin at 256^3 (SCHEME4_D2_PERIODIC): the operator's
+# infinity-norm is 4 * 1.2 / (1 - 0.2) / dx^2 ~ 1.0e4 and float32 input
+# rounding is <= 3e-8, so input rounding moves the result by < 3e-4; the
+# gate leaves room for the kernel's own rounding (truncation is ~1e-8).
+SIN2_GATE = 2e-3
+D1_SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME6, ct.SCHEME6_PERIODIC]
+D2_SCHEMES = [ct.SCHEME4_D2, ct.SCHEME4_D2_PERIODIC, ct.SCHEME6_D2, ct.SCHEME6_D2_PERIODIC]
+FUSED_PAIRS = [
+    (ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC),
+    (ct.SCHEME6_PERIODIC, ct.SCHEME6_D2_PERIODIC),
+]
 # 5 RK3 steps in float32 against float64: each of the 15 substeps rounds
 # the O(1) state (~6e-8) and adds dt * rhs with the kernels' <= 1e-5
 # relative error on an O(1) rhs (1e-8 at dt = 1e-3), so the expected gap is
 # ~1e-6 of max|f|; the gate leaves a factor of 10 above that.
 SLICE_GATE = 1e-5
 STEPS, DT, NU = 5, 1e-3, 1e-3
+RK3_MID = dict(a=-5.0 / 9.0, b=15.0 / 16.0, dt=DT, nu=NU)  # the second substep's
+# The card's published rates (NVIDIA H100 SXM data sheet, at 700 W): HBM3
+# bandwidth and float32 outside the tensor cores. The bound of a kernel is
+# the larger of its least bytes over the first and its operations over the
+# second.
+MEM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
 
 KERNELS = {
     "compact_lane": {
         "source": "cfd_tpu_torch/csrc/compact_lane.cu",
-        "replaces": "cfd_tpu/ops/pallas_lane.py:351 (_lane_fold_kernel); "
-        "cfd_tpu/ops/pallas_lane.py:475 (_lane_kernel)",
+        "replaces": "cfd_tpu/ops/pallas_lane.py:351 (_lane_fold_kernel, d1 and d2); "
+        "cfd_tpu/ops/pallas_lane.py:475 (_lane_kernel, d1)",
     },
     "compact_strided": {
         "source": "cfd_tpu_torch/csrc/compact_strided.cu",
-        "replaces": "cfd_tpu/ops/pallas_sublane.py:71 (_sublane_kernel); "
-        "cfd_tpu/ops/pallas_leading.py:157 (_leading_kernel, plain d1)",
+        "replaces": "cfd_tpu/ops/pallas_sublane.py:71 (_sublane_kernel, d1); "
+        "cfd_tpu/ops/pallas_sublane.py:231 (_sublane_fold_kernel, d2); "
+        "cfd_tpu/ops/pallas_leading.py:157 (_leading_kernel, plain d1 and d2)",
+    },
+    "adv_lap": {
+        "source": "cfd_tpu_torch/csrc/adv_lap.cu",
+        "replaces": "cfd_tpu/ops/pallas_lap.py:452 (_adv_lap_kernel)",
+    },
+    "rk3_mega": {
+        "source": "cfd_tpu_torch/csrc/rk3_mega.cu",
+        "replaces": "cfd_tpu/ops/pallas_megastep.py:95 (_mega_kernel)",
     },
 }
+COUNTERS = {"compact_lane": lane, "compact_strided": strided, "adv_lap": adv_lap,
+            "rk3_mega": megastep}
+# Least bytes each kernel must move per point at the timed call (f32 inputs
+# read once, outputs written once), and the operations it does per point,
+# counted from its arithmetic (line RHS ~17, forward sweep 4, backward 5).
+BYTES_PER_POINT = {"compact_lane": 8, "compact_strided": 8, "adv_lap": 20, "rk3_mega": 28}
+FLOPS_PER_POINT = {"compact_lane": 26, "compact_strided": 26, "adv_lap": 127, "rk3_mega": 44}
 
 
 def emit(obj) -> None:
@@ -118,14 +169,18 @@ def phase_build() -> None:
     })
 
 
-def _compare(stats, kernel, label, got, ref, failures):
+def _gate(scheme) -> float:
+    return D2_WALL_GATE if scheme.derivative_order == 2 and not scheme.periodic else GATE
+
+
+def _compare(stats, kernel, label, got, ref, failures, gate=GATE):
     torch.cuda.synchronize()
     abs_err = (got.double() - ref).abs().max().item()
     ref_max = ref.abs().max().item()
     rel = abs_err / ref_max
-    ok = rel <= GATE and got.shape == ref.shape
+    ok = rel <= gate and got.shape == ref.shape
     emit({"phase": "kernels", "kernel": kernel, "case": label, "max_abs_err": abs_err,
-          "max_abs_ref": ref_max, "rel_err": rel, "gate": GATE, "ok": ok})
+          "max_abs_ref": ref_max, "rel_err": rel, "gate": gate, "ok": ok})
     s = stats[kernel]
     s["max_abs_err"] = max(s["max_abs_err"], abs_err)
     s["max_rel_err"] = max(s["max_rel_err"], rel)
@@ -133,27 +188,20 @@ def _compare(stats, kernel, label, got, ref, failures):
         failures.append(f"{kernel} {label}: rel {rel:.3e}")
 
 
-def phase_kernels(dev) -> dict:
-    stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS}
-    failures = []
-    g = torch.Generator(device=dev).manual_seed(20261016)
-    c = coordinates(N, device=dev)
+def _derivative_cases(stats, failures, schemes, fields, g, dev):
     dx = 2 * math.pi / N
-    fields = {
-        "random": torch.randn((N, N, N), generator=g, device=dev),
-        "smooth": benchmark_field(c, c, c)[0],
-    }
-    for scheme in SCHEMES:
+    for scheme in schemes:
+        gate = _gate(scheme)
         for fname, f in fields.items():
             f64 = f.double()
-            _compare(stats, "compact_lane", f"dfdx {scheme.name} {fname} {N}^3",
+            _compare(stats, "compact_lane", f"x {scheme.name} {fname} {N}^3",
                      lane.lane_derivative(f, dx, scheme),
-                     lane.lane_derivative_ref(f64, dx, scheme), failures)
-            for axis, name in ((1, "dfdy"), (0, "dfdz")):
+                     lane.lane_derivative_ref(f64, dx, scheme), failures, gate)
+            for axis, name in ((1, "y"), (0, "z")):
                 _compare(stats, "compact_strided", f"{name} {scheme.name} {fname} {N}^3",
                          strided.strided_derivative(f, dx, scheme, axis),
-                         strided.strided_derivative_ref(f64, dx, scheme, axis), failures)
-        del f64
+                         strided.strided_derivative_ref(f64, dx, scheme, axis), failures, gate)
+            del f64
     extra = [
         ("compact_lane", N512, -1),  # n > 256: pallas_lane's roll-form regime
         ("compact_lane", (3, 37, 256), -1),  # 111 lines: a ragged last block
@@ -162,7 +210,7 @@ def phase_kernels(dev) -> dict:
     ]
     for kernel, shape, axis in extra:
         f = torch.randn(shape, generator=g, device=dev)
-        for scheme in SCHEMES:
+        for scheme in schemes:
             label = f"axis {axis} {scheme.name} {tuple(shape)}"
             if kernel == "compact_lane":
                 got = lane.lane_derivative(f, 0.01, scheme)
@@ -170,59 +218,129 @@ def phase_kernels(dev) -> dict:
             else:
                 got = strided.strided_derivative(f, 0.01, scheme, axis)
                 ref = strided.strided_derivative_ref(f.double(), 0.01, scheme, axis)
-            _compare(stats, kernel, label, got, ref, failures)
+            _compare(stats, kernel, label, got, ref, failures, _gate(scheme))
+
+
+def _fused_cases(stats, failures, g, dev):
+    c = coordinates(N, device=dev)
+    smooth = (benchmark_field(c, c, c)[0], *taylor_green(c, c, c))
+    for shape in ((N, N, N), RAGGED):
+        dz, dy, dx = (2 * math.pi / n for n in shape)
+        f, ux, uy, r, axy, uz, q = (torch.randn(shape, generator=g, device=dev)
+                                    for _ in range(7))
+        cases = {"random": (f, ux, uy)}  # K3's inputs
+        if shape == (N, N, N):
+            cases["smooth"] = smooth[:3]
+        for s1, s2 in FUSED_PAIRS:
+            names = f"{s1.name}+{s2.name} {tuple(shape)}"
+            for fname, (ff, ux, uy) in cases.items():
+                got = adv_lap.adv_lap_rhs(ff, ux, uy, dz, dy, dx, s1, s2)
+                ref = adv_lap.adv_lap_rhs_ref(ff.double(), ux.double(), uy.double(),
+                                              dz, dy, dx, s1, s2)
+                for out, g_, r_ in zip(("axy", "r"), got, ref):
+                    _compare(stats, "adv_lap", f"{out} {names} {fname}", g_, r_, failures)
+            d64 = [t.double() for t in (f, r, axy, uz)]
+            for case, qq, write_q in (("first", None, True), ("middle", q, True),
+                                      ("last", q, False)):
+                kw = dict(RK3_MID, write_q=write_q)
+                got_q, got_f = megastep.rk3_mega(f, r, axy, uz, qq, s1, s2, dz, **kw)
+                ref_q, ref_f = megastep.rk3_mega_ref(
+                    *d64, None if qq is None else qq.double(), s1, s2, dz, **kw)
+                _compare(stats, "rk3_mega", f"f' {names} {case}", got_f, ref_f, failures)
+                if write_q:
+                    _compare(stats, "rk3_mega", f"q' {names} {case}", got_q, ref_q, failures)
+                elif got_q is not None:
+                    failures.append(f"rk3_mega {names} {case}: q' returned with write_q=False")
+
+
+def phase_kernels(dev) -> dict:
+    stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS}
+    failures = []
+    g = torch.Generator(device=dev).manual_seed(20261016)
+    c = coordinates(N, device=dev)
+    fields = {
+        "random": torch.randn((N, N, N), generator=g, device=dev),
+        "smooth": benchmark_field(c, c, c)[0],
+    }
+    _derivative_cases(stats, failures, D1_SCHEMES, fields, g, dev)
+    _derivative_cases(stats, failures, D2_SCHEMES, fields, g, dev)
+    _fused_cases(stats, failures, g, dev)
     if failures:
         raise AssertionError("kernel vs plain over the gate: " + "; ".join(failures))
     return stats
 
 
 def phase_accuracy(dev) -> None:
-    c = coordinates(N, device=dev)
     dx = 2 * math.pi / N
-    f, exact = sine_field(c, c, c)
-    err = (ct.dfdx(f, dx, ct.SCHEME4) - exact).abs().max().item()
-    emit({"phase": "accuracy", "case": f"dfdx sin(x) SCHEME4 {N}^3 f32",
-          "max_abs_err": err, "gate": SIN_GATE, "ok": err < SIN_GATE})
-    if not err < SIN_GATE:
-        raise AssertionError(f"sin->cos error {err:.3e} >= {SIN_GATE}")
+    c = coordinates(N, device=dev, dtype=torch.float64)
+    f64, exact = sine_field(c, c, c)
+    f = f64.float()  # built in float64, cast once: only input rounding enters
+    cases = [
+        ("dfdx sin(x) SCHEME4", ct.dfdx(f, dx, ct.SCHEME4), exact, SIN_GATE),
+        ("d2fdx2 sin(x) SCHEME4_D2_PERIODIC", ct.d2fdx2(f, dx, ct.SCHEME4_D2_PERIODIC),
+         -f64, SIN2_GATE),
+    ]
+    for case, got, want, gate in cases:
+        err = (got.double() - want).abs().max().item()
+        emit({"phase": "accuracy", "case": f"{case} {N}^3 f32", "max_abs_err": err,
+              "gate": gate, "ok": err < gate})
+        if not err < gate:
+            raise AssertionError(f"{case}: error {err:.3e} >= {gate}")
 
 
-def _slice_setup(dev, method, dtype):
+def _model(dev, scheme, method, dtype, second_derivative=False):
     c = coordinates(N, device=dev)
     u = taylor_green(c, c, c)
     f0 = sine_field(c, c, c)[0]
-    model = AdvectionDiffusion(
-        Derivs.single_device(2 * math.pi / N, ct.SCHEME4_PERIODIC, method), nu=NU
-    )
-    return model, f0.to(dtype), tuple(v.to(dtype) for v in u)
+    derivs = Derivs.single_device(2 * math.pi / N, scheme, method,
+                                  second_derivative=second_derivative)
+    return AdvectionDiffusion(derivs, nu=NU), f0.to(dtype), tuple(v.to(dtype) for v in u)
 
 
-def phase_slice(dev) -> dict:
-    model, f0, u = _slice_setup(dev, "auto", torch.float32)
+SLICES = {
+    # name: (scheme, second_derivative, launches expected over STEPS steps)
+    "slice1": (ct.SCHEME4_PERIODIC, False,
+               {"compact_lane": 6 * STEPS, "compact_strided": 12 * STEPS,
+                "adv_lap": 0, "rk3_mega": 0}),
+    "slice2_fused": (ct.SCHEME4_PERIODIC, True,
+                     {"compact_lane": 0, "compact_strided": 0,
+                      "adv_lap": 3 * STEPS, "rk3_mega": 3 * STEPS}),
+    "slice2_walls": (ct.SCHEME4, True,
+                     {"compact_lane": 6 * STEPS, "compact_strided": 12 * STEPS,
+                      "adv_lap": 0, "rk3_mega": 0}),
+}
+
+
+def phase_slice(dev, name) -> dict:
+    scheme, d2, want = SLICES[name]
+    model, f0, u = _model(dev, scheme, "auto", torch.float32, d2)
+    fused = model.derivs.fused_substep is not None
     torch.cuda.synchronize()
-    lane.LAUNCHES = 0
-    strided.LAUNCHES = 0
+    for module in COUNTERS.values():
+        module.LAUNCHES = 0
     t0 = time.perf_counter()
     f = model.run(f0, u, DT, STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"compact_lane": lane.LAUNCHES, "compact_strided": strided.LAUNCHES}
+    launches = {k: m.LAUNCHES for k, m in COUNTERS.items()}
 
-    ref_model, f0_64, u_64 = _slice_setup(dev, "matmul", torch.float64)
+    # float64 through the plain path: method="matmul" builds no fused
+    # substep, so a fused run is held against the generic form
+    ref_model, f0_64, u_64 = _model(dev, scheme, "matmul", torch.float64, d2)
     f_ref = ref_model.run(f0_64, u_64, DT, STEPS)
     err = (f.double() - f_ref).abs().max().item()
     rel = err / f_ref.abs().max().item()
     finite = bool(torch.isfinite(f).all().item())
-    want = {"compact_lane": 6 * STEPS, "compact_strided": 12 * STEPS}
     ok = (finite and f.shape == (N, N, N) and f.dtype == torch.float32
-          and rel <= SLICE_GATE and launches == want)
-    emit({"phase": "slice", "case": f"AdvectionDiffusion SCHEME4_PERIODIC {N}^3 f32, "
-          f"{STEPS} RK3 steps dt={DT} nu={NU}", "method": "auto",
+          and rel <= SLICE_GATE and launches == want and fused == (name == "slice2_fused"))
+    emit({"phase": "slice", "slice": name,
+          "case": f"AdvectionDiffusion {scheme.name} second_derivative={d2} {N}^3 f32, "
+          f"{STEPS} RK3 steps dt={DT} nu={NU}", "method": "auto", "fused_substep": fused,
           "max_abs_err_vs_f64_plain": err, "rel_err": rel, "gate": SLICE_GATE,
           "finite": finite, "launches": launches, "launches_expected": want,
           "wall_s_incl_first_calls": wall, "ok": ok})
     if not ok:
-        raise AssertionError("slice failed: see the slice line")
+        raise AssertionError(f"{name} failed: see its slice line")
     return launches
 
 
@@ -236,38 +354,105 @@ def _turns(plain, kernel) -> dict:
             "kernel_readings_ms": [k1, k2], "plain_readings_ms": [p1, p2]}
 
 
+def _library_ms(f, scheme, dx, axis) -> float:
+    """One torch.matmul with the precomputed dense operator: the PyTorch
+    call that computes the same function as K1/K2 (timed here only)."""
+    n = f.shape[axis]
+    M = torch.as_tensor(dense.dense_operator(scheme, n) / dx**scheme.derivative_order,
+                        dtype=f.dtype, device=f.device)
+    if axis in (-1, f.ndim - 1):
+        a, b = f.view(-1, n), M.T.contiguous()
+    else:
+        a, b = M, f.view(math.prod(f.shape[:axis % f.ndim]), n, -1)
+    return cuda_time_ms(lambda: torch.matmul(a, b))
+
+
 def phase_times(dev, smi) -> dict:
     g = torch.Generator(device=dev).manual_seed(7)
     f = torch.randn((N, N, N), generator=g, device=dev)
     dx = 2 * math.pi / N
-    scheme = ct.SCHEME4_PERIODIC
+    s1, s2 = FUSED_PAIRS[0]
     times = {}
-    for axis, name in ((-1, "dfdx"), (-2, "dfdy"), (-3, "dfdz")):
-        def run(method, axis=axis):
-            return lambda: ct.derivative(f, dx, scheme, axis=axis, method=method)
-        times[name] = _turns(run("matmul"), run("kernel"))
+    for scheme, names in ((s1, ("dfdx", "dfdy", "dfdz")), (s2, ("d2fdx2", "d2fdy2", "d2fdz2"))):
+        for axis, name in zip((-1, -2, -3), names):
+            def run(method, axis=axis, scheme=scheme):
+                return lambda: ct.derivative(f, dx, scheme, axis=axis, method=method)
+            times[name] = _turns(run("matmul"), run("kernel"))
+            times[name]["library_ms"] = _library_ms(f, scheme, dx, axis)
     # K1 at n = 512, pallas_lane's roll-form regime, at phase 3's shape
     f512 = torch.randn(N512, generator=g, device=dev)
     times["dfdx_512"] = _turns(
-        lambda: ct.dfdx(f512, 0.01, scheme, method="matmul"),
-        lambda: ct.dfdx(f512, 0.01, scheme, method="kernel"),
+        lambda: ct.dfdx(f512, 0.01, s1, method="matmul"),
+        lambda: ct.dfdx(f512, 0.01, s1, method="kernel"),
     )
     times["dfdx_512"]["shape"] = list(N512)
+    # K3 and K4 as the fused step's middle substep calls them
+    ux, uy, uz, r, axy, q = (torch.randn((N, N, N), generator=g, device=dev) for _ in range(6))
+    times["adv_lap"] = _turns(
+        lambda: adv_lap.adv_lap_rhs_ref(f, ux, uy, dx, dx, dx, s1, s2),
+        lambda: adv_lap.adv_lap_rhs(f, ux, uy, dx, dx, dx, s1, s2),
+    )
+    times["rk3_mega"] = _turns(
+        lambda: megastep.rk3_mega_ref(f, r, axy, uz, q, s1, s2, dx, **RK3_MID),
+        lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, dx, **RK3_MID),
+    )
     out = torch.empty_like(f)
     copy_ms = cuda_time_ms(lambda: out.copy_(f))
-    model, f0, u = _slice_setup(dev, "auto", torch.float32)
-    step_ms = cuda_time_ms(lambda: model.step(f0, u, DT), warmup=2, iters=10)
-    plain_model, _, _ = _slice_setup(dev, "matmul", torch.float32)
-    plain_step_ms = cuda_time_ms(lambda: plain_model.step(f0, u, DT), warmup=2, iters=10)
+    steps = {}
+    for key, scheme, method, d2 in (
+        ("rk3_step_slice1_ms", s1, "auto", False),
+        ("rk3_step_slice1_plain_f32_ms", s1, "matmul", False),
+        ("rk3_step_fused_ms", s1, "auto", True),
+        ("rk3_step_d2_walls_ms", ct.SCHEME4, "auto", True),
+    ):
+        model, f0, u = _model(dev, scheme, method, torch.float32, d2)
+        steps[key] = cuda_time_ms(lambda: model.step(f0, u, DT), warmup=2, iters=10)
+    # the same d2 configuration without its fused substep: the generic step
+    # with the compact-d2 Laplacian through K1/K2
+    model, f0, u = _model(dev, s1, "auto", torch.float32, True)
+    generic = AdvectionDiffusion(dataclasses.replace(model.derivs, fused_substep=None), nu=NU)
+    steps["rk3_step_d2_generic_ms"] = cuda_time_ms(lambda: generic.step(f0, u, DT),
+                                                   warmup=2, iters=10)
     pts = N**3
     emit({
-        "phase": "times", "device": smi, "scheme": scheme.name, "shape": [N, N, N],
+        "phase": "times", "device": smi, "schemes": [s1.name, s2.name], "shape": [N, N, N],
         "dtype": "float32", **times, "copy_floor_ms": copy_ms,
         "dfdx_points_per_s": pts / (times["dfdx"]["kernel_ms"] * 1e-3),
-        "copy_GB_per_s": 2 * 4 * pts / (copy_ms * 1e-3) / 1e9,
-        "rk3_step_ms": step_ms, "rk3_step_plain_f32_ms": plain_step_ms,
+        "copy_GB_per_s": 2 * 4 * pts / (copy_ms * 1e-3) / 1e9, **steps,
     })
-    return times
+    return {**times, "copy_floor_ms": copy_ms}
+
+
+def _summary(stats, launches, times) -> list:
+    pts = N**3
+    copy_rate = 2 * 4 * pts / (times["copy_floor_ms"] * 1e-3)  # bytes/s, this run
+    timed = {
+        "compact_lane": ("dfdx",),
+        "compact_strided": ("dfdy", "dfdz"),  # K2 serves y and z equally often
+        "adv_lap": ("adv_lap",),
+        "rk3_mega": ("rk3_mega",),
+    }
+    rows = []
+    for name, keys in timed.items():
+        mean = lambda field: sum(times[k][field] for k in keys) / len(keys)
+        nbytes = BYTES_PER_POINT[name] * pts
+        byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        op_ms = FLOPS_PER_POINT[name] * pts / F32_FLOPS_PER_S * 1e3
+        lib = [times[k]["library_ms"] for k in keys if "library_ms" in times[k]]
+        rows.append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": sum(by_path[name] for by_path in launches.values()),
+            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()},
+            "max_abs_err": stats[name]["max_abs_err"],
+            "max_rel_err": stats[name]["max_rel_err"],
+            "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "copy_bound_ms": nbytes / copy_rate * 1e3,
+            "library_ms": sum(lib) / len(lib) if lib else None,
+            "timed": [f"{k} {N}^3 f32" for k in keys],
+        })
+    return rows
 
 
 def main() -> None:
@@ -276,24 +461,11 @@ def main() -> None:
     phase_build()
     stats = phase_kernels(dev)
     phase_accuracy(dev)
-    launches = phase_slice(dev)
+    launches = {name: phase_slice(dev, name) for name in SLICES}
     times = phase_times(dev, smi)
-    ms = {
-        "compact_lane": (times["dfdx"]["kernel_ms"], times["dfdx"]["plain_ms"]),
-        # K2 serves dfdy and dfdz equally often in the step: the mean of both
-        "compact_strided": (
-            (times["dfdy"]["kernel_ms"] + times["dfdz"]["kernel_ms"]) / 2,
-            (times["dfdy"]["plain_ms"] + times["dfdz"]["plain_ms"]) / 2,
-        ),
-    }
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    emit({"kernels": [
-        {"name": name, "route": "cuda", **KERNELS[name], "launches": launches[name],
-         "max_abs_err": stats[name]["max_abs_err"], "max_rel_err": stats[name]["max_rel_err"],
-         "ms": ms[name][0], "plain_ms": ms[name][1]}
-        for name in KERNELS
-    ]})
+    emit({"kernels": _summary(stats, launches, times)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

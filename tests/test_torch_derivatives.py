@@ -8,7 +8,9 @@ Inputs are made by numpy from a seed and handed to both packages.
 * float32: the port's plain path against the Pallas kernels it replaces,
   run in interpret mode as ``tests/test_leading.py`` runs them —
   2e-5 * max|ref| (the f32-recurrence tolerance of those kernels' own
-  tests, doubled for the second f32 path on the other side).
+  tests, doubled for the second f32 path on the other side). Second
+  derivatives against the fold kernels at 5e-5 * max|ref|, the gate those
+  kernels meet on d2 in ``tests/test_second_derivative.py``.
 """
 
 import jax.numpy as jnp
@@ -28,9 +30,12 @@ import cfd_tpu_torch.schemes as tsch
 from cfd_tpu_torch.oracle import derivative_np as port_oracle
 
 NAMES = ["SCHEME4", "SCHEME4_PERIODIC", "SCHEME6", "SCHEME6_PERIODIC"]
+D2_NAMES = ["SCHEME4_D2", "SCHEME4_D2_PERIODIC", "SCHEME6_D2", "SCHEME6_D2_PERIODIC"]
 F64_TOL = 1e-10
 F32_TOL = 2e-5
+D2_F32_TOL = 5e-5
 AXES = {"dfdx": -1, "dfdy": -2, "dfdz": -3}
+D2_AXES = {"d2fdx2": -1, "d2fdy2": -2, "d2fdz2": -3}
 
 
 def _rel(a, b):
@@ -109,8 +114,66 @@ def test_methods_agree_on_cpu(method):
 
 
 def test_rejects_second_derivative_and_unknown_method():
-    f = torch.zeros(8, 8, 8)
-    with pytest.raises(ValueError):
-        ct.dfdx(f, 0.1, tsch.SCHEME4_D2)
+    """As ``cfd_tpu``: ``derivative`` takes d1 and d2 schemes, and only the
+    second-derivative ops check the order. Filters are not ported yet."""
+    f = torch.zeros(8, 8, 32)
+    with pytest.raises(ValueError, match="derivative_order"):
+        ct.dfdx(f, 0.1, tsch.get_filter(6, 0.45, True))
     with pytest.raises(ValueError):
         ct.dfdx(f, 0.1, method="pcr")
+    with pytest.raises(ValueError, match="derivative_order"):
+        ct.d2fdx2(f, 0.1, tsch.SCHEME4)
+    with pytest.raises(ValueError, match="derivative_order"):
+        ct.laplacian(f, 0.1, tsch.SCHEME6)
+    assert ct.dfdx(f, 0.1, tsch.SCHEME4_D2).shape == f.shape
+
+
+@pytest.mark.parametrize("op", list(D2_AXES))
+@pytest.mark.parametrize("name", D2_NAMES)
+def test_plain_float64_d2_matches_jax_and_oracles(name, op):
+    js, ts = getattr(jsch, name), getattr(tsch, name)
+    f = np.random.default_rng(15).standard_normal((20, 24, 28)) + 0.5
+    dx = 0.07
+    got = getattr(ct, op)(torch.from_numpy(f), dx, ts).numpy()
+    ref_jax = np.asarray(getattr(cfd_tpu, op)(jnp.asarray(f), dx, js, method="pcr"))
+    assert _rel(got, ref_jax) <= F64_TOL
+    axis = D2_AXES[op] % 3
+    assert _rel(got, jax_oracle(js, f, dx, axis=axis)) <= F64_TOL
+    assert _rel(port_oracle(ts, f, dx, axis=axis), jax_oracle(js, f, dx, axis=axis)) <= F64_TOL
+
+
+@pytest.mark.parametrize("name", D2_NAMES)
+def test_laplacian_matches_jax(name):
+    js, ts = getattr(jsch, name), getattr(tsch, name)
+    f = np.random.default_rng(16).standard_normal((16, 20, 24))
+    spacing = (0.3, 0.2, 0.1)
+    got = ct.laplacian(torch.from_numpy(f), spacing, ts).numpy()
+    ref = np.asarray(cfd_tpu.laplacian(jnp.asarray(f), spacing, js, method="pcr"))
+    assert _rel(got, ref) <= F64_TOL
+    parts = sum(jax_oracle(js, f, h, axis=a) for a, h in enumerate(spacing))
+    assert _rel(got, parts) <= F64_TOL
+
+
+D2_PALLAS = {
+    # kernel: (shape, axis), the shapes of tests/test_second_derivative.py
+    "lane_fold": ((16, 256), 1),
+    "sublane_fold_z": ((256, 6, 4), 0),
+    "sublane_fold_y": ((2, 256, 128), 1),
+}
+
+
+@pytest.mark.parametrize("kernel", list(D2_PALLAS))
+@pytest.mark.parametrize("name", D2_NAMES)
+def test_plain_float32_d2_matches_pallas_fold_interpret(name, kernel):
+    js, ts = getattr(jsch, name), getattr(tsch, name)
+    shape, axis = D2_PALLAS[kernel]
+    n = shape[axis]
+    dx = 2 * np.pi / n
+    f = (np.random.default_rng(17).standard_normal(shape) + 0.7).astype(np.float32)
+    if kernel == "lane_fold":
+        ref = pallas_lane(jnp.asarray(f), dx, js, interpret=True)
+    else:
+        ref = pallas_sublane(jnp.asarray(f), dx, js, axis=axis, interpret=True)
+    got = ct.derivative(torch.from_numpy(f), dx, ts, axis=axis).numpy()
+    assert got.dtype == np.float32
+    assert _rel(got, np.asarray(ref)) <= D2_F32_TOL

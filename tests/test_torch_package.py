@@ -35,10 +35,28 @@ def test_import_loads_no_jax():
     done = _python(
         "import sys, cfd_tpu_torch, cfd_tpu_torch.models, cfd_tpu_torch.oracle\n"
         "import cfd_tpu_torch.utils, cfd_tpu_torch.ops._native\n"
+        "import cfd_tpu_torch.ops.adv_lap, cfd_tpu_torch.ops.megastep, cfd_tpu_torch.ops.fused_step\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfd_tpu.'))))"
     )
     assert done.returncode == 0, done.stderr
     assert done.stdout.strip() == "[]"
+
+
+def test_chip_smoke_imports_no_jax():
+    """The card's smoke script imports the port and nothing of JAX: its
+    module-level imports load, and no line of it names jax or cfd_tpu."""
+    done = _python(
+        "import sys, importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('smoke', 'chip_smoke.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfd_tpu.'))))"
+    )
+    assert done.returncode == 0, done.stderr
+    assert done.stdout.strip() == "[]"
+    for line in (ROOT / "chip_smoke.py").read_text().splitlines():
+        words = line.replace(".", " ").split()
+        if words[:1] in (["import"], ["from"]):
+            assert "jax" not in words and "cfd_tpu" not in words, line
 
 
 def test_native_import_needs_no_nvcc():
@@ -61,6 +79,8 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
 
 
 def test_sources_are_present():
+    kernels = {"compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu"}
+    assert kernels <= set(_native.SOURCES)
     for name in _native.SOURCES + _native.HEADERS:
         assert (_native.CSRC / name).is_file()
 

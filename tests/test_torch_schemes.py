@@ -3,8 +3,9 @@
 cfd_tpu_torch ports the numpy table code instead of importing it
 (importing cfd_tpu pulls in jax), so every table is held equal to its
 cfd_tpu counterpart: the scheme bands and RHS matrix, the Thomas and cyclic
-factors, and the dense operator. Tolerance: bitwise equality, or 1e-15
-absolute where the port's arithmetic order could differ.
+factors, the dense operator, and the z tables of the fused substep's
+Laplacian right-hand side. Tolerance: bitwise equality, or 1e-15 absolute
+where the port's arithmetic order could differ.
 """
 
 import dataclasses
@@ -14,13 +15,24 @@ import pytest
 
 import cfd_tpu.schemes as jsch
 from cfd_tpu.ops import derivatives as jder
+from cfd_tpu.ops import pallas_lap as jlap
 from cfd_tpu.ops import tridiag as jtri
 
 import cfd_tpu_torch.schemes as tsch
+from cfd_tpu_torch.ops import adv_lap as tlap
 from cfd_tpu_torch.ops import dense as tdense
 from cfd_tpu_torch.ops import tridiag as ttri
 
-NAMES = ["SCHEME4", "SCHEME4_PERIODIC", "SCHEME6", "SCHEME6_PERIODIC"]
+NAMES = [
+    "SCHEME4",
+    "SCHEME4_PERIODIC",
+    "SCHEME6",
+    "SCHEME6_PERIODIC",
+    "SCHEME4_D2",
+    "SCHEME4_D2_PERIODIC",
+    "SCHEME6_D2",
+    "SCHEME6_D2_PERIODIC",
+]
 SIZES = [32, 128, 256]
 
 
@@ -61,9 +73,7 @@ def test_dense_operator_equal(name, n):
     assert np.array_equal(jder.dense_operator(js, n), tdense.dense_operator(ts, n))
 
 
-@pytest.mark.parametrize(
-    "name", NAMES + ["SCHEME4_D2", "SCHEME6_D2_PERIODIC"]
-)
+@pytest.mark.parametrize("name", NAMES)
 def test_scheme_from_dict_carries_the_tables(name):
     js, ts = _pair(name)
     carried = tsch.scheme_from_dict(dataclasses.asdict(js))
@@ -73,6 +83,20 @@ def test_scheme_from_dict_carries_the_tables(name):
     assert np.array_equal(tsch.rhs_matrix(carried, n), jsch.rhs_matrix(js, n))
     for a, b in zip(tsch.lhs_bands(carried, n), jsch.lhs_bands(js, n)):
         assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("n", [8, 64, 256])
+@pytest.mark.parametrize("name", ["SCHEME4_D2_PERIODIC", "SCHEME6_D2_PERIODIC"])
+def test_z_tables_equal(name, n):
+    """float64 tables, cast to float32, equal cfd_tpu's float32 bit for bit."""
+    js, ts = _pair(name)
+    jb, jt = jlap._z_tables(js, n)
+    tb, tt = tlap.z_tables(ts, n)
+    assert tb.dtype == tt.dtype == np.float64
+    assert np.array_equal(tb.astype(np.float32), jb)
+    assert np.array_equal(tt.astype(np.float32), jt)
+    with pytest.raises(ValueError, match="periodic"):
+        tlap.z_tables(tsch.SCHEME4_D2, n)
 
 
 def test_filter_tables_equal():
