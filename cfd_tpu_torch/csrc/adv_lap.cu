@@ -50,7 +50,6 @@
 #define ADV_Y_THREADS (2 * ADV_COLS)        // one thread per column and family
 #define ADV_X_THREADS 128                   // x phase: >= 32 + lines per block
 #define ADV_X_SMEM (48 * 1024)              // x phase: bytes a block stages
-#define ADV_BATCH 8                         // coalesced loads in flight per thread
 #define ADV_MAX_TAPS (2 * CFD_MAX_K + 1)
 
 struct ZTab {
@@ -58,8 +57,6 @@ struct ZTab {
   const float* tt;  // (nz, 3): T_z, row p, offset k at [p][k + 1]
   int nz, W;
 };
-
-__host__ __device__ __forceinline__ int adv_ld(int n) { return (n + CFD_AHEAD + 1) | 1; }
 
 __device__ __forceinline__ long long wrap_plane(long long p, int d, int nz) {
   return ((p + d) % nz + nz) % nz;
@@ -139,7 +136,7 @@ __global__ void adv_lap_x_kernel(const float* __restrict__ f,
                                  const ZTab zt, int ny, int lines_per_block) {
   extern __shared__ float tile[];
   const int n = c1.n;
-  const int ld = adv_ld(n);
+  const int ld = cfd_line_ld(n);
   const long long lines = (long long)zt.nz * ny;
   const long long plane = (long long)ny * n;
   const long long line0 = (long long)blockIdx.x * lines_per_block;
@@ -150,33 +147,16 @@ __global__ void adv_lap_x_kernel(const float* __restrict__ f,
   float* tf = tile;                          // f lines, then D1x f
   float* th = tile + lines_per_block * ld;   // h lines, then D2x h
 
-  for (int e0 = threadIdx.x; e0 < count; e0 += ADV_BATCH * blockDim.x) {
-    float v[ADV_BATCH], h[ADV_BATCH];
-#pragma unroll
-    for (int u = 0; u < ADV_BATCH; ++u) {
-      const int e = e0 + u * blockDim.x;
-      v[u] = h[u] = 0.f;
-      if (e < count) {
-        const long long g = e_base + e;
-        const long long p = g / plane;
-        const float* tp = zt.tt + 3 * p;
-        const long long below = g + (wrap_plane(p, -1, zt.nz) - p) * plane;
-        const long long above = g + (wrap_plane(p, 1, zt.nz) - p) * plane;
-        v[u] = __ldg(f + g);
-        h[u] = __ldg(tp) * __ldg(f + below) + __ldg(tp + 1) * v[u] +
-               __ldg(tp + 2) * __ldg(f + above);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < ADV_BATCH; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (e < count) {
-        const int l = e / n;
-        tf[l * ld + (e - l * n)] = v[u];
-        th[l * ld + (e - l * n)] = h[u];
-      }
-    }
-  }
+  float* const tiles[2] = {tf, th};
+  stage_lines(tiles, count, n, [&](int e, float* v) {
+    const long long g = e_base + e;
+    const long long p = g / plane;
+    const float* tp = zt.tt + 3 * p;
+    const long long below = g + (wrap_plane(p, -1, zt.nz) - p) * plane;
+    const long long above = g + (wrap_plane(p, 1, zt.nz) - p) * plane;
+    v[0] = __ldg(f + g);
+    v[1] = __ldg(tp) * __ldg(f + below) + __ldg(tp + 1) * v[0] + __ldg(tp + 2) * __ldg(f + above);
+  });
   __syncthreads();
 
   // warp 0 solves the f lines, warp 1 the h lines: no divergence in a warp
@@ -184,7 +164,7 @@ __global__ void adv_lap_x_kernel(const float* __restrict__ f,
   if (t < nl || (t >= 32 && t - 32 < nl)) {
     const bool d2 = t >= 32;
     float* line = (d2 ? th : tf) + (d2 ? t - 32 : t) * ld;
-    for (int k = 0; k <= CFD_AHEAD; ++k) line[n + k] = line[k % n];
+    wrap_line(line, n);
     auto src = [&](int m) { return line[m]; };
     if (d2) {
       solve_line(c2, tab2, src, line, 1);
@@ -217,7 +197,7 @@ extern "C" int cfd_adv_lap(const float* f, const float* ux, const float* uy,
   if (c2y->n != ny || c2x->n != nx || W < 0 || W > CFD_MAX_K) {
     return (int)cudaErrorInvalidValue;
   }
-  const size_t line_bytes = (size_t)adv_ld(nx) * sizeof(float);
+  const size_t line_bytes = (size_t)cfd_line_ld(nx) * sizeof(float);
   if (2 * line_bytes > ADV_X_SMEM) return (int)cudaErrorInvalidValue;
   const ZTab zt = {bt, tt, nz, W};
   cudaStream_t s = (cudaStream_t)stream;

@@ -233,3 +233,40 @@ __device__ __forceinline__ void solve_line(const Coef& c,
                                            Src src, float* y, long long stride) {
   solve_line(c, tab, src, y, stride, [=](int i, float v) { y[i * stride] = v; });
 }
+
+// Lines staged in shared memory (K1, K3's x phase). Line l of a block sits
+// at tile + l * cfd_line_ld(n): n values, then CFD_AHEAD + 1 slots that
+// repeat its first values for the periodic wrap (wrap_line). The stride is
+// rounded up to odd, so the 32 lines a warp walks sit in 32 different banks.
+__host__ __device__ __forceinline__ int cfd_line_ld(int n) { return (n + CFD_AHEAD + 1) | 1; }
+
+#define CFD_STAGE_BATCH 8  // coalesced loads (stores) each thread keeps in flight
+
+// Stage `count` values, the block's lines of length n back to back, into NT
+// tiles with coalesced loads: load(e, v) fills v[0 .. NT) for element e.
+template <int NT, class Load>
+__device__ __forceinline__ void stage_lines(float* const (&tiles)[NT], int count, int n,
+                                            Load load) {
+  const int ld = cfd_line_ld(n);
+  for (int e0 = threadIdx.x; e0 < count; e0 += CFD_STAGE_BATCH * blockDim.x) {
+    float v[CFD_STAGE_BATCH][NT];
+#pragma unroll
+    for (int u = 0; u < CFD_STAGE_BATCH; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < count) load(e, v[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < CFD_STAGE_BATCH; ++u) {
+      const int e = e0 + u * blockDim.x;
+      if (e < count) {
+        const int l = e / n;
+#pragma unroll
+        for (int t = 0; t < NT; ++t) tiles[t][l * ld + (e - l * n)] = v[u][t];
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void wrap_line(float* line, int n) {
+  for (int k = 0; k <= CFD_AHEAD; ++k) line[n + k] = line[k % n];
+}

@@ -31,10 +31,6 @@
 
 #include "compact_common.cuh"
 
-#define LANE_BATCH 8  // coalesced loads (stores) each thread keeps in flight
-
-__host__ __device__ __forceinline__ int lane_ld(int n) { return (n + CFD_AHEAD + 1) | 1; }
-
 __global__ void compact_lane_kernel(const float* __restrict__ f,
                                     float* __restrict__ out,
                                     const float* __restrict__ tab,
@@ -42,7 +38,7 @@ __global__ void compact_lane_kernel(const float* __restrict__ f,
                                     long long lines, int lines_per_block) {
   extern __shared__ float tile[];
   const int n = c.n;
-  const int ld = lane_ld(n);
+  const int ld = cfd_line_ld(n);
   const long long line0 = (long long)blockIdx.x * lines_per_block;
   const long long rest = lines - line0;
   const int nl = rest < lines_per_block ? (int)rest : lines_per_block;
@@ -50,34 +46,20 @@ __global__ void compact_lane_kernel(const float* __restrict__ f,
   const float* fb = f + line0 * n;
   float* ob = out + line0 * n;
 
-  for (int e0 = threadIdx.x; e0 < count; e0 += LANE_BATCH * blockDim.x) {
-    float v[LANE_BATCH];
-#pragma unroll
-    for (int u = 0; u < LANE_BATCH; ++u) {
-      const int e = e0 + u * blockDim.x;
-      v[u] = e < count ? __ldg(fb + e) : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < LANE_BATCH; ++u) {
-      const int e = e0 + u * blockDim.x;
-      if (e < count) {
-        const int l = e / n;
-        tile[l * ld + (e - l * n)] = v[u];
-      }
-    }
-  }
+  float* const tiles[1] = {tile};
+  stage_lines(tiles, count, n, [&](int e, float* v) { v[0] = __ldg(fb + e); });
   __syncthreads();
 
   if (threadIdx.x < nl) {
     float* line = tile + threadIdx.x * ld;
-    for (int k = 0; k <= CFD_AHEAD; ++k) line[n + k] = line[k % n];
+    wrap_line(line, n);
     solve_line(c, tab, [&](int m) { return line[m]; }, line, 1);
   }
   __syncthreads();
 
-  for (int e0 = threadIdx.x; e0 < count; e0 += LANE_BATCH * blockDim.x) {
+  for (int e0 = threadIdx.x; e0 < count; e0 += CFD_STAGE_BATCH * blockDim.x) {
 #pragma unroll
-    for (int u = 0; u < LANE_BATCH; ++u) {
+    for (int u = 0; u < CFD_STAGE_BATCH; ++u) {
       const int e = e0 + u * blockDim.x;
       if (e < count) {
         const int l = e / n;
@@ -121,7 +103,7 @@ extern "C" int cfd_compact_lane(const float* f, float* out, const float* tab,
   int limit;
   cudaError_t err = lane_smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
-  const size_t line_bytes = (size_t)lane_ld(c->n) * sizeof(float);
+  const size_t line_bytes = (size_t)cfd_line_ld(c->n) * sizeof(float);
   if (line_bytes > (size_t)limit) return (int)cudaErrorInvalidValue;
   int per_block = 32;
   while (per_block > 1 && per_block * line_bytes > LANE_SMEM_DEFAULT) per_block /= 2;

@@ -19,15 +19,19 @@ script exits non-zero without printing the final line:
               second-derivative schemes, on a seeded random field and a
               smooth one, and on ragged shapes; K3 and K4 at 256^3 for the
               two periodic scheme pairs (K4 on the first, a middle and the
-              last substep) and at (40, 96, 200). Gate: max|err| <= 1e-5 *
-              max|ref|, 5e-5 for second derivatives with closure rows.
+              last substep, at nu = 1e-3 and at dt * nu = 1, where the
+              Laplacian is O(1) of the update) and at (40, 96, 200). Gate:
+              max|err| <= 1e-5 * max|ref|, 5e-5 for second derivatives
+              with closure rows.
 4. accuracy — dfdx of sin(x) against cos(x) (5e-4) and d2fdx2 of sin(x)
               against -sin(x) (2e-3), at 256^3.
 5. slices   — 5 RK3 advection–diffusion steps at 256^3 float32 through
               method="auto", each against the same steps on the plain
-              float64 path, with the kernels' launch counts: slice 1 (first
-              derivatives, K1 + K2), slice 2 fused (SCHEME4_PERIODIC with
-              the compact-d2 Laplacian: K3 + K4), slice 2 non-periodic
+              float64 path (gates 1e-5 * max|f| and 1e-3 * max|increment|),
+              with the kernels' launch counts: slice 1 (first derivatives,
+              K1 + K2), slice 2 fused (SCHEME4_PERIODIC with the compact-d2
+              Laplacian: K3 + K4) at nu = 1e-3 and at nu = 0.05 (where the
+              diffusion moves f well past the gate), slice 2 non-periodic
               (SCHEME4 with the d2 Laplacian: no fused substep, K1 + K2).
 6. times    — CUDA-event medians at 256^3, in turns: each kernel against
               its plain float32 version (and a single PyTorch matmul where
@@ -70,6 +74,10 @@ GATE = 1e-5  # kernel vs plain float64, relative to max|ref| (f32 recurrence)
 # max|f''| on a smooth field at n = 256, because the corner of T^{-1} (LHS
 # closures (1, 11) and (1, 137/13), pivots -0.1 and -0.05 on row 1)
 # amplifies the wall rows' rounding ~15x (tests/test_torch_kernels.py).
+# On phase 3's smooth field (benchmark_field, f'' up to 245) the split reads 1.5e-5
+# (SCHEME6_D2) from that rounding, 2.8e-5 with the float32 sweeps and 4.8e-5
+# with the RHS formed in float32 too (numpy transcription of the kernels,
+# `python tests/test_torch_kernels.py`).
 # They take the gate the JAX package's fold kernels meet on d2 (5e-5).
 D2_WALL_GATE = 5e-5
 SIN_GATE = 5e-4  # absolute, d/dx sin = cos at 256^3
@@ -89,8 +97,22 @@ FUSED_PAIRS = [
 # relative error on an O(1) rhs (1e-8 at dt = 1e-3), so the expected gap is
 # ~1e-6 of max|f|; the gate leaves a factor of 10 above that.
 SLICE_GATE = 1e-5
+# The same gap against what the 5 steps changed, max|f - f_ref| / max|f_ref -
+# f0| (the increment is ~5e-3 at dt = 1e-3), at tests/test_models.py's gate
+# for the fused step.
+INC_GATE = 1e-3
 STEPS, DT, NU = 5, 1e-3, 1e-3
+# At NU the diffusion moves f by ~5e-6 in 5 steps, under SLICE_GATE: a
+# second fused slice runs at a viscosity where nu * lap f (0.05 sin x) is
+# 5% of the advection term's peak (u . grad f = cos^2 x sin y sin z) and
+# moves f by ~2.5e-4 over 5 steps, 25x the gate.
+# RK3 stays stable: nu * dt * 18 / dx^2 (the d2 operator's largest
+# eigenvalue, 6 / dx^2 per axis) is 1.5, under 2.5.
+NU_VISCOUS = 0.05
 RK3_MID = dict(a=-5.0 / 9.0, b=15.0 / 16.0, dt=DT, nu=NU)  # the second substep's
+# K4 with dt * nu = 1: the Laplacian's share of q' and f' is O(1), so a
+# wrong d2 solve fails the gate (at NU it is ~2e-6 of max|q'|).
+RK3_DIFFUSIVE = dict(RK3_MID, nu=1.0 / DT)
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W): HBM3
 # bandwidth and float32 outside the tensor cores. The bound of a kernel is
 # the larger of its least bytes over the first and its operations over the
@@ -240,17 +262,19 @@ def _fused_cases(stats, failures, g, dev):
                 for out, g_, r_ in zip(("axy", "r"), got, ref):
                     _compare(stats, "adv_lap", f"{out} {names} {fname}", g_, r_, failures)
             d64 = [t.double() for t in (f, r, axy, uz)]
-            for case, qq, write_q in (("first", None, True), ("middle", q, True),
-                                      ("last", q, False)):
-                kw = dict(RK3_MID, write_q=write_q)
-                got_q, got_f = megastep.rk3_mega(f, r, axy, uz, qq, s1, s2, dz, **kw)
-                ref_q, ref_f = megastep.rk3_mega_ref(
-                    *d64, None if qq is None else qq.double(), s1, s2, dz, **kw)
-                _compare(stats, "rk3_mega", f"f' {names} {case}", got_f, ref_f, failures)
-                if write_q:
-                    _compare(stats, "rk3_mega", f"q' {names} {case}", got_q, ref_q, failures)
-                elif got_q is not None:
-                    failures.append(f"rk3_mega {names} {case}: q' returned with write_q=False")
+            for rk in (RK3_MID, RK3_DIFFUSIVE):
+                for case, qq, write_q in (("first", None, True), ("middle", q, True),
+                                          ("last", q, False)):
+                    kw = dict(rk, write_q=write_q)
+                    label = f"{names} {case} nu={rk['nu']:g}"
+                    got_q, got_f = megastep.rk3_mega(f, r, axy, uz, qq, s1, s2, dz, **kw)
+                    ref_q, ref_f = megastep.rk3_mega_ref(
+                        *d64, None if qq is None else qq.double(), s1, s2, dz, **kw)
+                    _compare(stats, "rk3_mega", f"f' {label}", got_f, ref_f, failures)
+                    if write_q:
+                        _compare(stats, "rk3_mega", f"q' {label}", got_q, ref_q, failures)
+                    elif got_q is not None:
+                        failures.append(f"rk3_mega {label}: q' returned with write_q=False")
 
 
 def phase_kernels(dev) -> dict:
@@ -288,32 +312,29 @@ def phase_accuracy(dev) -> None:
             raise AssertionError(f"{case}: error {err:.3e} >= {gate}")
 
 
-def _model(dev, scheme, method, dtype, second_derivative=False):
+def _model(dev, scheme, method, dtype, second_derivative=False, nu=NU):
     c = coordinates(N, device=dev)
     u = taylor_green(c, c, c)
     f0 = sine_field(c, c, c)[0]
     derivs = Derivs.single_device(2 * math.pi / N, scheme, method,
                                   second_derivative=second_derivative)
-    return AdvectionDiffusion(derivs, nu=NU), f0.to(dtype), tuple(v.to(dtype) for v in u)
+    return AdvectionDiffusion(derivs, nu=nu), f0.to(dtype), tuple(v.to(dtype) for v in u)
 
 
+K1K2_PATH = {"compact_lane": 6 * STEPS, "compact_strided": 12 * STEPS, "adv_lap": 0, "rk3_mega": 0}
+FUSED_PATH = {"compact_lane": 0, "compact_strided": 0, "adv_lap": 3 * STEPS, "rk3_mega": 3 * STEPS}
 SLICES = {
-    # name: (scheme, second_derivative, launches expected over STEPS steps)
-    "slice1": (ct.SCHEME4_PERIODIC, False,
-               {"compact_lane": 6 * STEPS, "compact_strided": 12 * STEPS,
-                "adv_lap": 0, "rk3_mega": 0}),
-    "slice2_fused": (ct.SCHEME4_PERIODIC, True,
-                     {"compact_lane": 0, "compact_strided": 0,
-                      "adv_lap": 3 * STEPS, "rk3_mega": 3 * STEPS}),
-    "slice2_walls": (ct.SCHEME4, True,
-                     {"compact_lane": 6 * STEPS, "compact_strided": 12 * STEPS,
-                      "adv_lap": 0, "rk3_mega": 0}),
+    # name: (scheme, second_derivative, nu, launches expected over STEPS steps)
+    "slice1": (ct.SCHEME4_PERIODIC, False, NU, K1K2_PATH),
+    "slice2_fused": (ct.SCHEME4_PERIODIC, True, NU, FUSED_PATH),
+    "slice2_fused_viscous": (ct.SCHEME4_PERIODIC, True, NU_VISCOUS, FUSED_PATH),
+    "slice2_walls": (ct.SCHEME4, True, NU, K1K2_PATH),
 }
 
 
 def phase_slice(dev, name) -> dict:
-    scheme, d2, want = SLICES[name]
-    model, f0, u = _model(dev, scheme, "auto", torch.float32, d2)
+    scheme, d2, nu, want = SLICES[name]
+    model, f0, u = _model(dev, scheme, "auto", torch.float32, d2, nu)
     fused = model.derivs.fused_substep is not None
     torch.cuda.synchronize()
     for module in COUNTERS.values():
@@ -326,17 +347,25 @@ def phase_slice(dev, name) -> dict:
 
     # float64 through the plain path: method="matmul" builds no fused
     # substep, so a fused run is held against the generic form
-    ref_model, f0_64, u_64 = _model(dev, scheme, "matmul", torch.float64, d2)
+    ref_model, f0_64, u_64 = _model(dev, scheme, "matmul", torch.float64, d2, nu)
     f_ref = ref_model.run(f0_64, u_64, DT, STEPS)
     err = (f.double() - f_ref).abs().max().item()
     rel = err / f_ref.abs().max().item()
+    rel_inc = err / (f_ref - f0_64).abs().max().item()
+    # what the diffusion term adds to f: the float64 run without it
+    inviscid = AdvectionDiffusion(ref_model.derivs, nu=0.0).run(f0_64, u_64, DT, STEPS)
+    diffusion = (f_ref - inviscid).abs().max().item() / f_ref.abs().max().item()
+    del inviscid
     finite = bool(torch.isfinite(f).all().item())
     ok = (finite and f.shape == (N, N, N) and f.dtype == torch.float32
-          and rel <= SLICE_GATE and launches == want and fused == (name == "slice2_fused"))
+          and rel <= SLICE_GATE and rel_inc <= INC_GATE and launches == want
+          and fused == (want == FUSED_PATH))
     emit({"phase": "slice", "slice": name,
           "case": f"AdvectionDiffusion {scheme.name} second_derivative={d2} {N}^3 f32, "
-          f"{STEPS} RK3 steps dt={DT} nu={NU}", "method": "auto", "fused_substep": fused,
+          f"{STEPS} RK3 steps dt={DT} nu={nu}", "method": "auto", "fused_substep": fused,
           "max_abs_err_vs_f64_plain": err, "rel_err": rel, "gate": SLICE_GATE,
+          "rel_err_of_increment": rel_inc, "increment_gate": INC_GATE,
+          "diffusion_share_of_max_f": diffusion,
           "finite": finite, "launches": launches, "launches_expected": want,
           "wall_s_incl_first_calls": wall, "ok": ok})
     if not ok:
@@ -385,6 +414,7 @@ def phase_times(dev, smi) -> dict:
         lambda: ct.dfdx(f512, 0.01, s1, method="matmul"),
         lambda: ct.dfdx(f512, 0.01, s1, method="kernel"),
     )
+    times["dfdx_512"]["library_ms"] = _library_ms(f512, s1, 0.01, -1)
     times["dfdx_512"]["shape"] = list(N512)
     # K3 and K4 as the fused step's middle substep calls them
     ux, uy, uz, r, axy, q = (torch.randn((N, N, N), generator=g, device=dev) for _ in range(6))
@@ -396,6 +426,11 @@ def phase_times(dev, smi) -> dict:
         lambda: megastep.rk3_mega_ref(f, r, axy, uz, q, s1, s2, dx, **RK3_MID),
         lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, dx, **RK3_MID),
     )
+    # K4 on the first substep (no q in) and the last (no q' out)
+    times["rk3_mega_first_ms"] = cuda_time_ms(
+        lambda: megastep.rk3_mega(f, r, axy, uz, None, s1, s2, dx, **RK3_MID))
+    times["rk3_mega_last_ms"] = cuda_time_ms(
+        lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, dx, **RK3_MID, write_q=False))
     out = torch.empty_like(f)
     copy_ms = cuda_time_ms(lambda: out.copy_(f))
     steps = {}
