@@ -1,9 +1,12 @@
 """cfd_tpu_torch — the PyTorch/CUDA port of cfd_tpu.
 
-Compact (Padé) first and second derivatives of 3-D scalar fields, the
-compact-d2 Laplacian and the RK3 advection–diffusion stepper with its fused
-substep, on PyTorch with hand-written CUDA kernels for Hopper (``csrc/``). The JAX package ``cfd_tpu`` beside it is the reference
-the port is held against; this package never imports it or ``jax``.
+Compact (Padé) first and second derivatives of 3-D fields, the gradient,
+divergence and compact-d2 Laplacian, the spectral Poisson solve and
+Helmholtz projection, and the RK3 advection–diffusion, Burgers and
+Navier–Stokes steppers with their fused substeps, on PyTorch with
+hand-written CUDA kernels for Hopper (``csrc/``). The JAX package
+``cfd_tpu`` beside it is the reference the port is held against; this
+package never imports it or ``jax``.
 """
 
 from . import models, ops, oracle, schemes, utils
@@ -15,8 +18,11 @@ from .ops import (
     dfdx,
     dfdy,
     dfdz,
+    divergence,
     gradient,
     laplacian,
+    project,
+    solve_poisson,
 )
 from .schemes import (
     SCHEME4,
@@ -43,6 +49,9 @@ __all__ = [
     "dfdy",
     "dfdz",
     "gradient",
+    "divergence",
+    "solve_poisson",
+    "project",
     "d2fdx2",
     "d2fdy2",
     "d2fdz2",

@@ -227,6 +227,25 @@ __device__ __forceinline__ void solve_line(const Coef& c,
   for (int i = n - 2; i >= 0; --i) store(i, s.backward(i, zb.next(i)));
 }
 
+// solve_line for a right-hand side that is already formed: `src(m)` returns
+// r[m] for 0 <= m <= n + CFD_AHEAD (any finite value past n). It repeats
+// solve_line's sweeps rather than sharing them: routing solve_line through
+// a shared body by reference measured K1 8.6% slower on an H100 (different
+// register allocation of the same arithmetic; PERF.md).
+template <class Src, class Store>
+__device__ __forceinline__ void solve_formed(const Coef& c,
+                                             const float* __restrict__ tab,
+                                             Src src, float* y, long long stride,
+                                             Store store) {
+  const int n = c.n;
+  Ahead<Src> rhs(src);
+  Sweep s(c, tab);
+  for (int i = 0; i < n; ++i) y[i * stride] = s.forward(i, rhs.next(i));
+  Behind zb(y, stride, n);
+  store(n - 1, s.last(c));
+  for (int i = n - 2; i >= 0; --i) store(i, s.backward(i, zb.next(i)));
+}
+
 template <class Src>
 __device__ __forceinline__ void solve_line(const Coef& c,
                                            const float* __restrict__ tab,

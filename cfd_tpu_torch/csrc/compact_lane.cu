@@ -9,10 +9,17 @@
 // (plus a Sherman–Morrison rank-1 term on periodic lines), not their
 // block-matrix algebra for the TPU's matrix unit.
 //
+// With `acc` the write-back adds it, out = f' + acc (a separate
+// instantiation, so the plain derivative pays nothing for it): with a
+// negative spacing that is pallas_pair.py `_pair_sub_kernel`'s x half,
+// ax - dphi/dx (ops/pair.py), and dphi/dx never makes a round trip through
+// memory.
+//
 // Bound on Hopper: by its work, bytes. One read and one write of f32 per
-// point is the least any form can move, and the sweeps are ~15 flops per
-// point. This simple form is bound instead by the latency of its sweeps,
-// at ~3.8x the copy floor at 256^3 (design below).
+// point (and one more read with acc) is the least any form can move, and
+// the sweeps are ~15 flops per point. This simple form is bound instead by
+// the latency of its sweeps, at ~3.8x the copy floor at 256^3 (design
+// below).
 //
 // Design: a block takes L consecutive lines and stages them in shared
 // memory with coalesced loads, eight in flight per thread, so that HBM sees
@@ -31,10 +38,12 @@
 
 #include "compact_common.cuh"
 
+template <bool ACC>
 __global__ void compact_lane_kernel(const float* __restrict__ f,
                                     float* __restrict__ out,
                                     const float* __restrict__ tab,
                                     const __grid_constant__ Coef c,
+                                    const float* __restrict__ acc,  // ACC only
                                     long long lines, int lines_per_block) {
   extern __shared__ float tile[];
   const int n = c.n;
@@ -45,6 +54,7 @@ __global__ void compact_lane_kernel(const float* __restrict__ f,
   const int count = nl * n;
   const float* fb = f + line0 * n;
   float* ob = out + line0 * n;
+  const float* ab = ACC ? acc + line0 * n : nullptr;
 
   float* const tiles[1] = {tile};
   stage_lines(tiles, count, n, [&](int e, float* v) { v[0] = __ldg(fb + e); });
@@ -63,7 +73,8 @@ __global__ void compact_lane_kernel(const float* __restrict__ f,
       const int e = e0 + u * blockDim.x;
       if (e < count) {
         const int l = e / n;
-        ob[e] = tile[l * ld + (e - l * n)];
+        const float v = tile[l * ld + (e - l * n)];
+        ob[e] = ACC ? v + __ldg(ab + e) : v;
       }
     }
   }
@@ -86,7 +97,10 @@ static cudaError_t lane_smem_limit(int* bytes) {
     int most;
     err = cudaDeviceGetAttribute(&most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(compact_lane_kernel,
+    err = cudaFuncSetAttribute(compact_lane_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(compact_lane_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, most);
     if (err != cudaSuccess) return err;
     lane_smem_optin[dev] = most;
@@ -95,11 +109,12 @@ static cudaError_t lane_smem_limit(int* bytes) {
   return cudaSuccess;
 }
 
-// Lines of length n = c->n, `lines` of them. A block stages 32 lines, halved
-// until they fit 48 KB; a line longer than the device's opt-in maximum of
-// shared memory returns cudaErrorInvalidValue.
+// Lines of length n = c->n, `lines` of them; acc may be null. A block
+// stages 32 lines, halved until they fit 48 KB; a line longer than the
+// device's opt-in maximum of shared memory returns cudaErrorInvalidValue.
 extern "C" int cfd_compact_lane(const float* f, float* out, const float* tab,
-                                const Coef* c, long long lines, void* stream) {
+                                const Coef* c, const float* acc, long long lines,
+                                void* stream) {
   int limit;
   cudaError_t err = lane_smem_limit(&limit);
   if (err != cudaSuccess) return (int)err;
@@ -108,7 +123,14 @@ extern "C" int cfd_compact_lane(const float* f, float* out, const float* tab,
   int per_block = 32;
   while (per_block > 1 && per_block * line_bytes > LANE_SMEM_DEFAULT) per_block /= 2;
   const long long blocks = (lines + per_block - 1) / per_block;
-  compact_lane_kernel<<<(unsigned)blocks, LANE_THREADS, per_block * line_bytes,
-                        (cudaStream_t)stream>>>(f, out, tab, *c, lines, per_block);
+  const size_t smem = per_block * line_bytes;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (acc) {
+    compact_lane_kernel<true><<<(unsigned)blocks, LANE_THREADS, smem, s>>>(f, out, tab, *c, acc,
+                                                                           lines, per_block);
+  } else {
+    compact_lane_kernel<false><<<(unsigned)blocks, LANE_THREADS, smem, s>>>(f, out, tab, *c, acc,
+                                                                            lines, per_block);
+  }
   return (int)cudaGetLastError();
 }

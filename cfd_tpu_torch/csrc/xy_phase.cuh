@@ -1,0 +1,296 @@
+// The right-hand sides that move T_z through the xy derivatives, shared by
+// K3 (adv_lap.cu), K5 (adv_lap3.cu) and K6 (div_rhs.cu). For a float32
+// (nz, ny, nx) field and a periodic scheme with z operators T_z (LHS) and
+// B_z / dz**order (RHS), each "family" writes one output, of one of two
+// kinds:
+//
+//   advection:  out = my * Dy sy + mx * Dx sx
+//   z-RHS:      out = B_z bz + Dy (T_z sy) + Dx (T_z sx)
+//
+// where Dy and Dx are the family's compact scheme along y and x (the d1 or
+// the d2 of the launch). Since the xy operators do not depend on z,
+// T_z (Dx s + Dy s) = Dx (T_z s) + Dy (T_z s), so solving T_z x = out along
+// z (K4, or K2's solve_only mode) turns a z-RHS into Dx sx + Dy sy plus the
+// z derivative of bz without ever storing the xy derivatives:
+//
+//   K3  axy = ux Dx f + uy Dy f;   r = B_z f + D2x h + D2y h,  h = T_z f
+//   K5  K3's two families for each of u0, u1, u2, advected by u0 and u1
+//   K6  r = B_z uz + D1x (T_z ux) + D1y (T_z uy)               (divergence)
+//
+// A 256^2 plane (256 KB) does not fit one block's 227 KB of shared memory,
+// so a launch is two kernels on one stream:
+//
+// 1. y phase, one thread per (z, x) column of one family, walking y as K2
+//    does (neighbouring threads on neighbouring x, so each row access of a
+//    warp is coalesced). A z-RHS family forms T_z sy from three planes as
+//    it reads. The forward sweep keeps its values in `out`, and the
+//    backward sweep stores my * Dy sy, or Dy (T_z sy) + B_z bz, there.
+// 2. x phase, as K1: a block stages consecutive x-lines of a z-RHS
+//    family's T_z sx (formed from three planes) and, where an advection
+//    family over the same field comes with it, of sx itself, in shared
+//    memory with coalesced loads, from one read of sx; a warp per family
+//    solves them in place; the block adds them, times mx for advection,
+//    into the outputs, coalesced.
+//
+// Families (x: pairs of them) sit on the grid's y axis, so the branch on a
+// family's kind is uniform in a block, and each kind's body is compiled
+// apart.
+//
+// Bound on Hopper: by its work, bytes. Each output is written once and each
+// distinct input read once at the least; this form also moves the y
+// phase's scratch round trip and the x phase's read-modify-write of every
+// output, and reads the neighbouring planes that form h and B_z (mostly L2
+// hits, since all columns walk y together). Both phases are latency-bound
+// recurrences like K1 and K2 (PERF.md).
+//
+// B_z g is formed from differences to the point's own value,
+// sum_{k != 0} bt[p,k] (g[p+k] - g[p]): a derivative's row annihilates
+// constants (the wrappers check it), and on a smooth field the raw sum of
+// O(1/dz**order) products would lose ~1e-4 of an O(1) result in float32.
+//
+// Everything here is in an anonymous namespace: each source that includes
+// it gets its own copy of the kernels.
+#pragma once
+
+#include "compact_common.cuh"
+
+namespace {
+
+#define XY_MAX_FAMILIES 6
+#define XY_Z_TAPS (2 * CFD_MAX_K + 1)
+#define XY_Y_THREADS 128         // y phase: columns per block
+#define XY_X_THREADS 128         // x phase: >= 32 + the lines a block stages
+#define XY_X_LINES 32            // x phase: lines per block, halved to fit
+#define XY_X_SMEM (48 * 1024)    // x phase: bytes a block stages
+
+struct ZTab {
+  const float* bt;  // (nz, 2W + 1): B_z / dz**order, row p, offset k at [p][k + W]
+  const float* tt;  // (nz, 3): T_z, row p, offset k at [p][k + 1]
+  int nz, W;
+};
+
+struct XYFamily {
+  const float* sy;  // the field differentiated along y
+  const float* sx;  // the field differentiated along x
+  const float* my;  // advection: multiplies Dy sy (unused by a z-RHS)
+  const float* mx;  // advection: multiplies Dx sx (unused by a z-RHS)
+  const float* bz;  // z-RHS: the field under B_z (unused by advection)
+  float* out;       // never an input of any family
+  int d2;           // 1: the launch's second scheme (the d2), 0: its first
+  int rhs;          // 1: a z-RHS family, 0: an advection family
+};
+
+struct XYArgs {
+  XYFamily fam[XY_MAX_FAMILIES];
+  Coef cy[2], cx[2];  // the launch's two schemes along y (n = ny) and x (n = nx)
+  const float* taby[2];
+  const float* tabx[2];
+  ZTab zt;
+  int nfam;
+  int paired;  // 1: families 2g and 2g + 1 are an advection and a z-RHS family
+               // over the same sx; 0: every family is a z-RHS family
+};
+
+__device__ __forceinline__ long long wrap_plane(long long p, int d, int nz) {
+  return ((p + d) % nz + nz) % nz;
+}
+
+// Row p of T_z: h[e] = t0 s[e - plane] + t1 s[e] + t2 s[e + plane], planes
+// wrapped; `e` is an element of plane p.
+struct TzRow {
+  float t0, t1, t2;
+  long long below, above;  // offsets to the wrapped neighbouring planes
+  __device__ __forceinline__ TzRow(const ZTab& zt, long long p, long long plane)
+      : t0(__ldg(zt.tt + 3 * p)), t1(__ldg(zt.tt + 3 * p + 1)), t2(__ldg(zt.tt + 3 * p + 2)),
+        below((wrap_plane(p, -1, zt.nz) - p) * plane),
+        above((wrap_plane(p, 1, zt.nz) - p) * plane) {}
+  // se: s[e], where the caller has it already
+  __device__ __forceinline__ float at(const float* __restrict__ s, long long e, float se) const {
+    return t0 * __ldg(s + e + below) + t1 * se + t2 * __ldg(s + e + above);
+  }
+  __device__ __forceinline__ float at(const float* __restrict__ s, long long e) const {
+    return at(s, e, __ldg(s + e));
+  }
+};
+
+// Row p of B_z in difference form (see the top of this file).
+struct BzRow {
+  long long off[XY_Z_TAPS];
+  float w[XY_Z_TAPS];
+  __device__ __forceinline__ BzRow(const ZTab& zt, long long p, long long plane) {
+    const int taps = 2 * zt.W + 1;
+#pragma unroll
+    for (int k = 0; k < XY_Z_TAPS; ++k) {
+      const bool on = k < taps && k != zt.W;
+      off[k] = on ? (wrap_plane(p, k - zt.W, zt.nz) - p) * plane : 0;
+      w[k] = on ? __ldg(zt.bt + taps * p + k) : 0.f;
+    }
+  }
+  __device__ __forceinline__ float at(const float* __restrict__ g, long long e) const {
+    const float ge = __ldg(g + e);
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < XY_Z_TAPS; ++k) {
+      if (w[k] != 0.f) s += w[k] * (__ldg(g + e + off[k]) - ge);
+    }
+    return s;
+  }
+};
+
+// One family's column of the y phase.
+template <bool RHS>
+__device__ __forceinline__ void xy_y_column(const XYArgs& a, const XYFamily& F, long long col) {
+  const Coef& c = a.cy[F.d2];
+  const int ny = c.n;
+  const long long nx = a.cx[0].n;
+  const long long plane = ny * nx;
+  const long long p = col / nx;
+  const long long base = p * plane + (col - p * nx);
+  const TzRow tz(a.zt, p, plane);
+  auto src = [&](int m) {
+    if (m >= ny) {
+      if (!c.periodic) return 0.f;
+      m %= ny;
+    }
+    const long long e = base + m * nx;
+    return RHS ? tz.at(F.sy, e) : __ldg(F.sy + e);
+  };
+  if (RHS) {
+    const BzRow bz(a.zt, p, plane);
+    solve_line(c, a.taby[F.d2], src, F.out + base, nx, [&](int i, float v) {
+      const long long e = base + i * nx;
+      F.out[e] = v + bz.at(F.bz, e);
+    });
+  } else {
+    solve_line(c, a.taby[F.d2], src, F.out + base, nx, [&](int i, float v) {
+      const long long e = base + i * nx;
+      F.out[e] = __ldg(F.my + e) * v;
+    });
+  }
+}
+
+// At most 64 registers, so 8 blocks (1,024 threads) fit an SM.
+__global__ void __launch_bounds__(XY_Y_THREADS, 8) xy_y_kernel(const __grid_constant__ XYArgs a) {
+  const XYFamily& F = a.fam[blockIdx.y];
+  const long long col = (long long)blockIdx.x * XY_Y_THREADS + threadIdx.x;
+  if (col >= a.zt.nz * a.cx[0].n) return;
+  if (F.rhs) {
+    xy_y_column<true>(a, F, col);
+  } else {
+    xy_y_column<false>(a, F, col);
+  }
+}
+
+// The x phase. A block stages consecutive x-lines of one group's field:
+// T_z sx for its z-RHS family and, when the families come in pairs (an
+// advection family 2g, then a z-RHS family 2g + 1 over the same sx), sx
+// itself for the advection family, both from one read of sx. Warp 0 solves
+// the z-RHS lines, warp 1 the advection lines, in place.
+template <bool PAIRED>
+__global__ void xy_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
+  extern __shared__ float tile[];
+  const XYFamily& R = a.fam[PAIRED ? 2 * blockIdx.y + 1 : blockIdx.y];
+  const XYFamily& A = a.fam[PAIRED ? 2 * blockIdx.y : blockIdx.y];  // read only when PAIRED
+  const int n = a.cx[0].n;
+  const int ld = cfd_line_ld(n);
+  const long long lines = (long long)a.zt.nz * a.cy[0].n;
+  const long long plane = (long long)a.cy[0].n * n;
+  const long long line0 = (long long)blockIdx.x * lines_per_block;
+  const long long rest = lines - line0;
+  const int nl = rest < lines_per_block ? (int)rest : lines_per_block;
+  const int count = nl * n;
+  const long long e_base = line0 * n;
+  float* tr = tile;                            // T_z sx lines, then their Dx
+  float* ta = tile + lines_per_block * ld;     // sx lines, then their Dx (PAIRED)
+
+  if (PAIRED) {
+    float* const tiles[2] = {tr, ta};
+    stage_lines(tiles, count, n, [&](int e, float* v) {
+      const long long g = e_base + e;
+      v[1] = __ldg(R.sx + g);
+      v[0] = TzRow(a.zt, g / plane, plane).at(R.sx, g, v[1]);
+    });
+  } else {
+    float* const tiles[1] = {tr};
+    stage_lines(tiles, count, n, [&](int e, float* v) {
+      const long long g = e_base + e;
+      v[0] = TzRow(a.zt, g / plane, plane).at(R.sx, g, __ldg(R.sx + g));
+    });
+  }
+  __syncthreads();
+
+  const int t = threadIdx.x;
+  if (t < nl || (PAIRED && t >= 32 && t - 32 < nl)) {
+    const bool adv = t >= 32;  // warp 1: no divergence in a warp
+    const XYFamily& F = adv ? A : R;
+    float* line = (adv ? ta : tr) + (adv ? t - 32 : t) * ld;
+    wrap_line(line, n);
+    solve_line(a.cx[F.d2], a.tabx[F.d2], [&](int m) { return line[m]; }, line, 1);
+  }
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    const int l = e / n;
+    const int s = l * ld + (e - l * n);
+    const long long g = e_base + e;
+    R.out[g] += tr[s];
+    if (PAIRED) A.out[g] += __ldg(A.mx + g) * ta[s];
+  }
+}
+
+// The launch's tables: scheme 0 along y and x (c0y, c0x with their per-point
+// tables), scheme 1 likewise (may repeat scheme 0), and the z tables of the
+// scheme whose T_z and B_z the families use.
+__host__ inline XYArgs xy_args(const float* tab0y, const float* tab1y, const float* tab0x,
+                               const float* tab1x, const Coef* c0y, const Coef* c1y,
+                               const Coef* c0x, const Coef* c1x, const float* bt,
+                               const float* tt, int nz, int W) {
+  XYArgs a = {};
+  a.cy[0] = *c0y;
+  a.cy[1] = *c1y;
+  a.cx[0] = *c0x;
+  a.cx[1] = *c1x;
+  a.taby[0] = tab0y;
+  a.taby[1] = tab1y;
+  a.tabx[0] = tab0x;
+  a.tabx[1] = tab1x;
+  a.zt = {bt, tt, nz, W};
+  return a;
+}
+
+// Both phases of `a` on `stream`. Families, line lengths or a z width the
+// kernels do not take, and x lines past 48 KB, return cudaErrorInvalidValue.
+__host__ inline int xy_launch(const XYArgs& a, void* stream) {
+  const int ny = a.cy[0].n, nx = a.cx[0].n;
+  bool ok = a.nfam >= 1 && a.nfam <= XY_MAX_FAMILIES && a.cy[1].n == ny && a.cx[1].n == nx &&
+            a.zt.W >= 0 && a.zt.W <= CFD_MAX_K && a.zt.nz >= 1 && (!a.paired || a.nfam % 2 == 0);
+  for (int k = 0; ok && k < a.nfam; ++k) {
+    const bool rhs = !a.paired || k % 2 == 1;
+    ok = a.fam[k].rhs == (int)rhs && (!a.paired || rhs || a.fam[k].sx == a.fam[k + 1].sx);
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int tiles = a.paired ? 2 : 1;
+  const size_t line_bytes = (size_t)cfd_line_ld(nx) * sizeof(float);
+  if (tiles * line_bytes > XY_X_SMEM) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+
+  const long long cols = (long long)a.zt.nz * nx;
+  const dim3 ygrid((unsigned)((cols + XY_Y_THREADS - 1) / XY_Y_THREADS), a.nfam);
+  xy_y_kernel<<<ygrid, XY_Y_THREADS, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  int per_block = XY_X_LINES;
+  while (per_block > 1 && tiles * per_block * line_bytes > XY_X_SMEM) per_block /= 2;
+  const long long lines = (long long)a.zt.nz * ny;
+  const dim3 xgrid((unsigned)((lines + per_block - 1) / per_block), a.nfam / tiles);
+  const size_t smem = tiles * per_block * line_bytes;
+  if (a.paired) {
+    xy_x_kernel<true><<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
+  } else {
+    xy_x_kernel<false><<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

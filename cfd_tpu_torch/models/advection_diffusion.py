@@ -25,10 +25,10 @@ import torch
 from torch import nn
 
 from ..ops import derivatives as single
-from ..ops.fused_step import make_fused_substep
+from ..ops.fused_step import make_fused_substep, make_fused_substep_vec
 from ..schemes import SCHEME4_PERIODIC, CompactScheme, get_scheme
 
-__all__ = ["AdvectionDiffusion", "Derivs", "state_from_numpy"]
+__all__ = ["AdvectionDiffusion", "Derivs", "state_from_numpy", "tensors_from_numpy"]
 
 # Williamson low-storage RK3
 RK3_A = (0.0, -5.0 / 9.0, -153.0 / 128.0)
@@ -45,7 +45,9 @@ class Derivs:
     differentiates the gradient once more. ``fused_substep``, when set, is
     ``(f, u, q, dt, nu, a, b, last) -> (q', f')``, one whole RK3 substep
     (``ops/fused_step.py``), which the model's step then runs instead of
-    its generic form.
+    its generic form. ``fused_substep_vec``, when set, is
+    ``(u, q, dt, nu, a, b, last) -> (q', u')``, one momentum stage of all
+    three components of a velocity, which Burgers and Navier–Stokes prefer.
     """
 
     dfdx: Callable
@@ -54,6 +56,7 @@ class Derivs:
     gradient: Callable
     laplacian: Optional[Callable] = None
     fused_substep: Optional[Callable] = None
+    fused_substep_vec: Optional[Callable] = None
 
     @classmethod
     def single_device(
@@ -68,17 +71,18 @@ class Derivs:
 
         ``second_derivative=True`` adds a compact-d2 ``laplacian`` of the
         same order and periodicity as ``scheme`` and, for ``method="auto"``
-        and a first-derivative ``scheme``, the fused substep, which exists
-        for periodic schemes only.
+        and a first-derivative ``scheme``, the fused substeps (scalar and
+        vector), which exist for periodic schemes only.
         """
         dz, dy, dx = single.spacings3(spacing)
         lap = None
-        fused = None
+        fused = fused_vec = None
         if second_derivative:
             d2 = get_scheme(scheme.order, scheme.periodic, derivative=2)
             lap = lambda f: single.laplacian(f, (dz, dy, dx), d2, method=method)
             if method == "auto" and scheme.derivative_order == 1:
                 fused = make_fused_substep((dz, dy, dx), scheme, d2)
+                fused_vec = make_fused_substep_vec((dz, dy, dx), scheme, d2)
         return cls(
             dfdx=lambda f: single.dfdx(f, dx, scheme, method=method),
             dfdy=lambda f: single.dfdy(f, dy, scheme, method=method),
@@ -86,6 +90,7 @@ class Derivs:
             gradient=lambda f: single.gradient(f, (dz, dy, dx), scheme, method=method),
             laplacian=lap,
             fused_substep=fused,
+            fused_substep_vec=fused_vec,
         )
 
 
@@ -135,13 +140,17 @@ class AdvectionDiffusion(nn.Module):
         return f
 
 
+def tensors_from_numpy(arrays, device, dtype=torch.float32):
+    """A tuple of tensors on ``device`` from numpy arrays: a JAX run's
+    velocity triple or RK state (``np.asarray`` of its arrays)."""
+    # np.array copies: a JAX array's numpy view is read-only
+    return tuple(torch.from_numpy(np.array(a)).to(device=device, dtype=dtype) for a in arrays)
+
+
 def state_from_numpy(f: np.ndarray, u, device, dtype=torch.float32):
     """(f, (ux, uy, uz)) as tensors on ``device``, from numpy arrays.
 
     Carries a JAX run's state (``np.asarray`` of its arrays) onto the port.
     """
-    def put(a):
-        # np.array copies: a JAX array's numpy view is read-only
-        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
-
-    return put(f), tuple(put(c) for c in u)
+    (f,) = tensors_from_numpy((f,), device, dtype)
+    return f, tensors_from_numpy(u, device, dtype)

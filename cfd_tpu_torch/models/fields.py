@@ -1,7 +1,7 @@
 """Analytic test fields on tensors.
 
 The port of ``cfd_tpu/models/fields.py``: the reference's sin and
-x cos(xy) + sin(z) y fields and the Taylor–Green vortex. Each function
+x cos(xy) + sin(z) y fields and the Taylor–Green vortex, 3-D and 2-D. Each function
 takes 1-D coordinate tensors (z, y, x) and returns ``(nz, ny, nx)``
 tensors on their device; ``coordinates`` makes those on an explicit
 device.
@@ -13,7 +13,7 @@ import math
 
 import torch
 
-__all__ = ["coordinates", "benchmark_field", "taylor_green", "sine_field"]
+__all__ = ["coordinates", "benchmark_field", "taylor_green", "taylor_green_2d", "sine_field"]
 
 
 def coordinates(
@@ -53,6 +53,21 @@ def taylor_green(z, y, x, t: float = 0.0, nu: float = 0.0):
     u = torch.cos(X) * torch.sin(Y) * torch.sin(Z) * F
     v = -torch.sin(X) * torch.cos(Y) * torch.sin(Z) * F
     return u, v, torch.zeros_like(u)
+
+
+def taylor_green_2d(z, y, x, t: float = 0.0, nu: float = 0.0):
+    """The z-independent Taylor–Green vortex, an exact Navier–Stokes
+    solution: u = cos(x) sin(y) F, v = -sin(x) cos(y) F, w = 0 and
+    p = -(cos 2x + cos 2y) F^2 / 4, with F(t) = exp(-2 nu t).
+
+    Returns ((u, v, w), p).
+    """
+    Z, Y, X = _meshgrid3(z, y, x)
+    F = math.exp(-2.0 * nu * t)
+    u = _full(torch.cos(X) * torch.sin(Y) * F, z, y, x)
+    v = _full(-torch.sin(X) * torch.cos(Y) * F, z, y, x)
+    p = _full(-(torch.cos(2 * X) + torch.cos(2 * Y)) * (F * F / 4), z, y, x)
+    return (u, v, torch.zeros_like(u)), p
 
 
 def sine_field(z, y, x, k: float = 1.0):

@@ -1,6 +1,7 @@
 """Single-device ops: factor tables, the dense plain path, the CUDA kernels'
-wrappers (``lane``: K1, ``strided``: K2, ``adv_lap``: K3, ``megastep``: K4),
-the derivative API and the fused RK3 substep."""
+wrappers (``lane``: K1, ``strided``: K2, ``adv_lap``: K3 and K5,
+``megastep``: K4, ``vec``: K6, ``pair``: K1 + K2 epilogues), the derivative
+API, the fused RK3 substeps and the spectral Poisson solve."""
 
 from .derivatives import (
     d2fdx2,
@@ -11,11 +12,13 @@ from .derivatives import (
     dfdx,
     dfdy,
     dfdz,
+    divergence,
     gradient,
     laplacian,
     resolve_method,
 )
-from .fused_step import make_fused_substep
+from .fused_step import make_fused_substep, make_fused_substep_vec
+from .poisson import laplacian_eigenvalues, project, solve_poisson, spectral_multipliers
 
 __all__ = [
     "dense_operator",
@@ -27,7 +30,13 @@ __all__ = [
     "d2fdy2",
     "d2fdz2",
     "gradient",
+    "divergence",
     "laplacian",
     "make_fused_substep",
+    "make_fused_substep_vec",
     "resolve_method",
+    "solve_poisson",
+    "project",
+    "spectral_multipliers",
+    "laplacian_eigenvalues",
 ]

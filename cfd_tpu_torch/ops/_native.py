@@ -43,8 +43,11 @@ __all__ = [
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu")
-HEADERS = ("compact_common.cuh",)
+SOURCES = (
+    "compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu",
+    "adv_lap3.cu", "div_rhs.cu",
+)
+HEADERS = ("compact_common.cuh", "xy_phase.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -135,12 +138,16 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     coef = ctypes.POINTER(Coef)
-    lib.cfd_compact_lane.argtypes = [p, p, p, coef, i64, p]
+    lib.cfd_compact_lane.argtypes = [p, p, p, coef, p, i64, p]
     lib.cfd_compact_lane.restype = i32
-    lib.cfd_compact_strided.argtypes = [p, p, p, coef, i64, i64, p]
+    lib.cfd_compact_strided.argtypes = [p, p, p, coef, p, p, i32, i64, i64, p]
     lib.cfd_compact_strided.restype = i32
     lib.cfd_adv_lap.argtypes = [p] * 11 + [coef] * 4 + [i32, i32, p]
     lib.cfd_adv_lap.restype = i32
+    lib.cfd_adv_lap3.argtypes = [p] * 15 + [coef] * 4 + [i32, i32, p]
+    lib.cfd_adv_lap3.restype = i32
+    lib.cfd_div_rhs.argtypes = [p] * 8 + [coef] * 2 + [i32, i32, p]
+    lib.cfd_div_rhs.restype = i32
     f32 = ctypes.c_float
     lib.cfd_rk3_mega.argtypes = [p] * 9 + [coef, coef, f32, f32, f32, f32, i32, i64, p]
     lib.cfd_rk3_mega.restype = i32

@@ -1,8 +1,9 @@
 """The advection term in x and y and the Laplacian's z right-hand side from
-one call: kernel K3.
+one call: kernels K3 (one field) and K5 (a velocity's three components).
 
-The port of the merged head of ``cfd_tpu/ops/pallas_lap.py``
-(``adv_lap_rhs``, its Pallas kernel ``_adv_lap_kernel``, and the z tables
+The port of the merged heads of ``cfd_tpu/ops/pallas_lap.py``
+(``adv_lap_rhs`` and ``adv_lap_rhs3``, their Pallas kernels
+``_adv_lap_kernel`` and ``_adv_lap3_kernel``, and the z tables
 ``_z_tables``). For a (nz, ny, nx) field f, a d1 scheme D1 and a periodic
 d2 scheme D2 with z operators T_z (LHS) and B_z (RHS):
 
@@ -10,13 +11,16 @@ d2 scheme D2 with z operators T_z (LHS) and B_z (RHS):
     r   = B_z f / dz**2 + T_z (D2x f + D2y f)
 
 Solving ``T_z lap = r`` along z gives the Laplacian, since the xy operator
-commutes with T_z (``ops/megastep.py`` does that solve). On a CUDA float32
-tensor ``adv_lap_rhs`` launches ``adv_lap`` (``csrc/adv_lap.cu``); on a CPU
-tensor it returns ``adv_lap_rhs_ref``, the plain PyTorch version, which
-applies the dense operators.
+commutes with T_z (``ops/megastep.py`` does that solve). ``adv_lap_rhs3``
+computes both for each component u_i of a velocity, advected by u0 and u1,
+in one call. On CUDA float32 tensors ``adv_lap_rhs``
+launches ``adv_lap`` (``csrc/adv_lap.cu``) and ``adv_lap_rhs3`` launches
+``adv_lap3`` (``csrc/adv_lap3.cu``); on CPU tensors they return
+``adv_lap_rhs_ref`` and ``adv_lap_rhs3_ref``, the plain PyTorch versions,
+which apply the dense operators.
 
-``LAUNCHES`` counts calls that launched the kernel (its two phases count
-once); nothing but the launch adds to it.
+``LAUNCHES`` and ``LAUNCHES3`` count calls that launched K3 and K5 (each
+kernel's two phases count once); nothing but the launch adds to them.
 """
 
 from __future__ import annotations
@@ -31,9 +35,19 @@ from ..schemes import CompactScheme, lhs_bands, rhs_matrix
 from . import _native
 from .dense import dense_apply, dense_derivative
 
-__all__ = ["LAUNCHES", "z_tables", "adv_lap_rhs", "adv_lap_rhs_ref"]
+__all__ = [
+    "LAUNCHES",
+    "LAUNCHES3",
+    "z_tables",
+    "device_z_tables",
+    "adv_lap_rhs",
+    "adv_lap_rhs_ref",
+    "adv_lap_rhs3",
+    "adv_lap_rhs3_ref",
+]
 
 LAUNCHES = 0
+LAUNCHES3 = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -62,13 +76,14 @@ def z_tables(scheme: CompactScheme, n: int):
 
 
 @functools.lru_cache(maxsize=16)
-def _device_z_tables(scheme: CompactScheme, n: int, dz: float, device: torch.device):
+def device_z_tables(scheme: CompactScheme, n: int, dz: float, device: torch.device):
+    """The kernels' float32 z tables on ``device``: (B_z / dz**order, T_z)."""
     btab, ttab = z_tables(scheme, n)
-    # the kernel forms B_z f from differences to f[p]: every row must
+    # the kernels form B_z f from differences to f[p]: every row must
     # annihilate constants, as a derivative's does
     if np.abs(btab.sum(axis=1)).max() > 1e-12 * np.abs(btab).max():
-        raise ValueError(f"adv_lap: B_z rows of {scheme.name} do not annihilate constants")
-    bt = torch.as_tensor(btab / dz**2, dtype=torch.float32, device=device)
+        raise ValueError(f"{scheme.name}: B_z rows do not annihilate constants")
+    bt = torch.as_tensor(btab / dz**scheme.derivative_order, dtype=torch.float32, device=device)
     tt = torch.as_tensor(ttab, dtype=torch.float32, device=device)
     return bt, tt
 
@@ -96,6 +111,23 @@ def adv_lap_rhs_ref(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: Comp
     return axy, r
 
 
+def _xy_tables(shape, dz, dy, dx, scheme1, scheme2, dev):
+    """The K3/K5 table arguments: the four line tables, the z tables, the
+    four Coefs, nz and W."""
+    nz, ny, nx = shape
+    bt, tt = device_z_tables(scheme2, nz, float(dz), dev)
+    c1y, t1y = _native.launch_tables(scheme1, ny, float(dy), dev)
+    c2y, t2y = _native.launch_tables(scheme2, ny, float(dy), dev)
+    c1x, t1x = _native.launch_tables(scheme1, nx, float(dx), dev)
+    c2x, t2x = _native.launch_tables(scheme2, nx, float(dx), dev)
+    return (
+        t1y.data_ptr(), t2y.data_ptr(), t1x.data_ptr(), t2x.data_ptr(),
+        bt.data_ptr(), tt.data_ptr(),
+        ctypes.byref(c1y), ctypes.byref(c2y), ctypes.byref(c1x), ctypes.byref(c2x),
+        nz, scheme2.stencil_width,
+    )
+
+
 def adv_lap_rhs(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
     """``(ux*D1x f + uy*D1y f, B_z f/dz**2 + T_z(D2x f + D2y f))`` of a
     (nz, ny, nx) field, in one call.
@@ -109,24 +141,53 @@ def adv_lap_rhs(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactS
     if f.device.type == "cpu":
         return adv_lap_rhs_ref(f, ux, uy, dz, dy, dx, scheme1, scheme2)
     _native.check_operands("adv_lap", f, ux, uy)
-    nz, ny, nx = f.shape
-    dev = f.device
-    bt, tt = _device_z_tables(scheme2, nz, float(dz), dev)
-    c1y, t1y = _native.launch_tables(scheme1, ny, float(dy), dev)
-    c2y, t2y = _native.launch_tables(scheme2, ny, float(dy), dev)
-    c1x, t1x = _native.launch_tables(scheme1, nx, float(dx), dev)
-    c2x, t2x = _native.launch_tables(scheme2, nx, float(dx), dev)
     axy = torch.empty_like(f)
     r = torch.empty_like(f)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(f.device):
         err = _native.library().cfd_adv_lap(
             f.data_ptr(), ux.data_ptr(), uy.data_ptr(), axy.data_ptr(), r.data_ptr(),
-            t1y.data_ptr(), t2y.data_ptr(), t1x.data_ptr(), t2x.data_ptr(),
-            bt.data_ptr(), tt.data_ptr(),
-            ctypes.byref(c1y), ctypes.byref(c2y), ctypes.byref(c1x), ctypes.byref(c2x),
-            nz, scheme2.stencil_width,
+            *_xy_tables(f.shape, dz, dy, dx, scheme1, scheme2, f.device),
             torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "adv_lap")
     LAUNCHES += 1
     return axy, r
+
+
+def adv_lap_rhs3_ref(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
+    """The plain PyTorch version: ``adv_lap_rhs_ref(u_i, u0, u1)`` for each
+    component, as ``((axy0, axy1, axy2), (r0, r1, r2))``."""
+    outs = [adv_lap_rhs_ref(c, u[0], u[1], dz, dy, dx, scheme1, scheme2) for c in u]
+    return tuple(o[0] for o in outs), tuple(o[1] for o in outs)
+
+
+def adv_lap_rhs3(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
+    """``adv_lap_rhs(u_i, u0, u1)`` for the three components of a velocity
+    ``u = (u0, u1, u2)`` in one call: ``((axy0, axy1, axy2), (r0, r1, r2))``.
+
+    The kernel's x phase stages each component once for both of its
+    outputs (``csrc/adv_lap3.cu``). CUDA tensors must be float32 and
+    contiguous and run the kernel; a launch failure raises. CPU tensors
+    take ``adv_lap_rhs3_ref``.
+    """
+    global LAUNCHES3
+    if len(u) != 3:
+        raise ValueError(f"adv_lap_rhs3 needs three components, got {len(u)}")
+    u0, u1, u2 = u
+    for c in (u0, u1, u2):
+        _check(c, u0, u1, scheme1, scheme2)
+    if u0.device.type == "cpu":
+        return adv_lap_rhs3_ref(u, dz, dy, dx, scheme1, scheme2)
+    _native.check_operands("adv_lap3", u0, u1, u2)
+    axy = [torch.empty_like(u0) for _ in range(3)]
+    r = [torch.empty_like(u0) for _ in range(3)]
+    with torch.cuda.device(u0.device):
+        err = _native.library().cfd_adv_lap3(
+            u0.data_ptr(), u1.data_ptr(), u2.data_ptr(),
+            *(a.data_ptr() for a in axy), *(a.data_ptr() for a in r),
+            *_xy_tables(u0.shape, dz, dy, dx, scheme1, scheme2, u0.device),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _native.check(err, "adv_lap3")
+    LAUNCHES3 += 1
+    return tuple(axy), tuple(r)

@@ -1,7 +1,7 @@
 """Single-device compact derivative API.
 
 The port of ``cfd_tpu/ops/derivatives.py``: first and second derivatives,
-``gradient`` and the second-derivative ``laplacian``. Fields are
+``gradient``, ``divergence`` and the second-derivative ``laplacian``. Fields are
 ``[..., nz, ny, nx]`` with x the fastest axis, as in the JAX package.
 Filters (``derivative_order=0``) are not ported yet and raise.
 
@@ -20,12 +20,12 @@ Methods:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from ..schemes import SCHEME4, SCHEME4_D2, CompactScheme
-from . import _native, lane, strided
+from . import _native, lane, strided, vec
 from .dense import dense_derivative, dense_operator
 
 __all__ = [
@@ -39,6 +39,7 @@ __all__ = [
     "d2fdy2",
     "d2fdz2",
     "gradient",
+    "divergence",
     "laplacian",
 ]
 
@@ -137,6 +138,40 @@ def gradient(
         dfdx(f, dx, scheme, method=method),
         dfdy(f, dy, scheme, method=method),
         dfdz(f, dz, scheme, method=method),
+    )
+
+
+def divergence(
+    u: Sequence[torch.Tensor],
+    spacing,
+    scheme: CompactScheme = SCHEME4,
+    *,
+    method: str = "auto",
+) -> torch.Tensor:
+    """div(u) of a 3-component vector field (ux, uy, uz).
+
+    On ``"auto"`` with CUDA float32 (nz, ny, nx) components and a periodic
+    d1 scheme it takes the fused route (``ops/vec.divergence_fused``: K6
+    forms ``B_z uz + T_z (D1x ux + D1y uy)`` from one read of each
+    component, and one z solve of K2 turns it into div u), as the JAX
+    function does on the TPU. Otherwise it is the sum of three derivatives.
+    """
+    ux, uy, uz = u
+    dz, dy, dx = spacings3(spacing)
+    if (
+        method == "auto"
+        and ux.device.type == "cuda"
+        and ux.ndim == 3
+        and ux.shape == uy.shape == uz.shape
+        and ux.dtype == uy.dtype == uz.dtype == torch.float32
+        and scheme.periodic
+        and scheme.derivative_order == 1
+    ):
+        return vec.divergence_fused((ux, uy, uz), dz, dy, dx, scheme)
+    return (
+        dfdx(ux, dx, scheme, method=method)
+        + dfdy(uy, dy, scheme, method=method)
+        + dfdz(uz, dz, scheme, method=method)
     )
 
 

@@ -8,8 +8,10 @@ which replaces both of that module's derivative kernels: the fold form
 filters (``derivative_order=0``) are not ported yet and raise. On a CPU
 tensor it returns ``lane_derivative_ref``, the plain PyTorch version.
 
-``LAUNCHES`` counts kernel launches, so that a run can show that its path
-went through the kernel; nothing but the launch adds to it.
+``LAUNCHES`` counts the launches of ``lane_derivative``, so that a run can
+show that its path went through the kernel; nothing but the launch adds to
+it. ``launch`` is the bare launch, with the kernel's ``acc`` epilogue
+(``f' + acc``), for ``ops/pair.py``, which counts its own calls.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..schemes import CompactScheme
 from . import _native
 from .dense import dense_derivative
 
-__all__ = ["LAUNCHES", "lane_derivative", "lane_derivative_ref"]
+__all__ = ["LAUNCHES", "launch", "lane_derivative", "lane_derivative_ref"]
 
 LAUNCHES = 0
 
@@ -43,9 +45,19 @@ def lane_derivative(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
     _native.check_order(scheme)
     if f.device.type == "cpu":
         return lane_derivative_ref(f, dx, scheme)
-    _native.check_operands("compact_lane", f)
+    out = launch(f, dx, scheme)
+    LAUNCHES += 1
+    return out
+
+
+def launch(f: torch.Tensor, dx, scheme: CompactScheme, acc: torch.Tensor = None) -> torch.Tensor:
+    """One launch of the kernel on a CUDA tensor, ``f' + acc`` with ``acc``
+    (``acc`` contiguous, of f's shape), counted by the caller."""
+    _native.check_operands("compact_lane", f, *((acc,) if acc is not None else ()))
     if f.ndim == 0:
         raise ValueError("compact_lane needs at least one axis")
+    if acc is not None and acc.shape != f.shape:
+        raise ValueError(f"acc shape {tuple(acc.shape)} != field shape {tuple(f.shape)}")
     n = f.shape[-1]
     coef, tab = _native.launch_tables(scheme, n, float(dx), f.device)
     out = torch.empty_like(f)
@@ -58,9 +70,9 @@ def lane_derivative(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
             out.data_ptr(),
             tab.data_ptr(),
             ctypes.byref(coef),
+            acc.data_ptr() if acc is not None else None,
             lines,
             torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "compact_lane")
-    LAUNCHES += 1
     return out

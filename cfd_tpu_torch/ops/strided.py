@@ -1,5 +1,5 @@
 """Compact derivative along any strided axis (d/dy, d/dz and their second
-derivatives): kernel K2.
+derivatives), its fused epilogues, and the bare tridiagonal solve: kernel K2.
 
 The port of ``cfd_tpu/ops/pallas_sublane.py`` and
 ``cfd_tpu/ops/pallas_leading.py``. The field is viewed as
@@ -8,11 +8,22 @@ The port of ``cfd_tpu/ops/pallas_sublane.py`` and
 On a CUDA float32 tensor ``strided_derivative`` launches
 ``compact_strided`` (``csrc/compact_strided.cu``), which replaces
 ``_sublane_kernel`` (first derivatives), ``_sublane_fold_kernel`` (second
-derivatives) and the plain derivative mode of ``_leading_kernel``. Filters
-(``derivative_order=0``) are not ported yet and raise. On a CPU tensor it
-returns ``strided_derivative_ref``, the plain PyTorch version.
+derivatives) and ``_leading_kernel`` in its plain mode and its epilogue
+modes:
 
-``LAUNCHES`` counts kernel launches; nothing but the launch adds to it.
+* ``acc``: ``f' + acc`` (with a negative spacing, the projection's
+  ``uz - dphi/dz``);
+* ``mul``: ``mul * f' + acc`` (the advection term ``uz * fz + axy``);
+* ``solve_only``: ``leading_solve`` solves ``T x = r`` for a right-hand side
+  that is already formed (the second half of the fused divergence).
+
+Filters (``derivative_order=0``) are not ported yet and raise. On a CPU
+tensor each function returns its plain PyTorch version (``*_ref``).
+
+``LAUNCHES`` counts kernel launches, whatever the mode, and
+``MODE_LAUNCHES`` the same launches by mode; nothing but a launch adds to
+them. ``launch`` is the bare launch, for ``ops/pair.py``, which counts its
+own calls.
 """
 
 from __future__ import annotations
@@ -24,28 +35,42 @@ import torch
 
 from ..schemes import CompactScheme
 from . import _native
-from .dense import dense_derivative
+from .dense import dense_apply, dense_derivative
 
-__all__ = ["LAUNCHES", "strided_derivative", "strided_derivative_ref"]
+__all__ = [
+    "LAUNCHES",
+    "MODE_LAUNCHES",
+    "launch",
+    "strided_derivative",
+    "strided_derivative_ref",
+    "leading_solve",
+    "leading_solve_ref",
+]
 
 LAUNCHES = 0
+MODE_LAUNCHES = {"derivative": 0, "acc": 0, "mul": 0, "solve": 0}
 
 
 def strided_derivative_ref(
-    f: torch.Tensor, dx, scheme: CompactScheme, axis: int
+    f: torch.Tensor, dx, scheme: CompactScheme, axis: int, *, acc=None, mul=None
 ) -> torch.Tensor:
-    """The plain PyTorch version: the dense operator along ``axis``."""
-    return dense_derivative(f, dx, scheme, axis)
+    """The plain PyTorch version: the dense operator along ``axis``, then
+    ``mul * f' + acc``."""
+    out = dense_derivative(f, dx, scheme, axis)
+    if mul is not None:
+        out = mul * out
+    return out + acc if acc is not None else out
 
 
 def strided_derivative(
-    f: torch.Tensor, dx, scheme: CompactScheme, axis: int
+    f: torch.Tensor, dx, scheme: CompactScheme, axis: int, *, acc=None, mul=None
 ) -> torch.Tensor:
     """Compact first or second derivative of ``f`` along ``axis``, any axis
-    but the last.
+    but the last, as ``mul * f' + acc`` where given (each of f's shape).
 
-    CUDA tensors must be float32 and contiguous and run the kernel; a line
-    too short for the scheme and a launch failure raise. CPU tensors take
+    CUDA tensors must be float32 and contiguous and run the kernel, with
+    ``mul`` and ``acc`` applied by its final store; a line too short for the
+    scheme and a launch failure raise. CPU tensors take
     ``strided_derivative_ref``.
     """
     global LAUNCHES
@@ -53,10 +78,51 @@ def strided_derivative(
     axis = axis % f.ndim
     if axis == f.ndim - 1:
         raise ValueError("the last axis is contiguous: use lane_derivative")
+    for name, a in (("acc", acc), ("mul", mul)):
+        if a is not None and a.shape != f.shape:
+            raise ValueError(f"{name} shape {tuple(a.shape)} != field shape {tuple(f.shape)}")
     if f.device.type == "cpu":
-        return strided_derivative_ref(f, dx, scheme, axis)
-    _native.check_operands("compact_strided", f)
-    coef, tab = _native.launch_tables(scheme, f.shape[axis], float(dx), f.device)
+        return strided_derivative_ref(f, dx, scheme, axis, acc=acc, mul=mul)
+    out = launch(f, dx, scheme, axis, acc=acc, mul=mul)
+    mode = "mul" if mul is not None else ("acc" if acc is not None else "derivative")
+    LAUNCHES += 1
+    MODE_LAUNCHES[mode] += 1
+    return out
+
+
+def leading_solve_ref(rhs: torch.Tensor, scheme: CompactScheme) -> torch.Tensor:
+    """The plain PyTorch version: T^{-1} applied densely along axis 0."""
+    return dense_apply("lhs_inverse", rhs, scheme, 0)
+
+
+def leading_solve(rhs: torch.Tensor, scheme: CompactScheme) -> torch.Tensor:
+    """Solve ``T x = rhs`` along axis 0 with the scheme's LHS operator.
+
+    The counterpart of ``pallas_leading.leading_solve``: K2 with its RHS
+    stencil replaced by the identity (no closure rows, no wrap; a periodic
+    line keeps its Sherman–Morrison term). CUDA tensors run the kernel; CPU
+    tensors take ``leading_solve_ref``.
+    """
+    global LAUNCHES
+    _native.check_order(scheme)
+    if rhs.ndim == 0:
+        raise ValueError("leading_solve needs at least one axis")
+    if rhs.device.type == "cpu":
+        return leading_solve_ref(rhs, scheme)
+    out = launch(rhs, 1.0, scheme, 0, solve_only=True)
+    LAUNCHES += 1
+    MODE_LAUNCHES["solve"] += 1
+    return out
+
+
+def launch(f, dx, scheme: CompactScheme, axis: int, *, acc=None, mul=None,
+           solve_only: bool = False) -> torch.Tensor:
+    """One launch of the kernel on a CUDA tensor, counted by the caller."""
+    extras = [a for a in (mul, acc) if a is not None]
+    _native.check_operands("compact_strided", f, *extras)
+    n = f.shape[axis]
+    # solve_only reads only the LHS tables: the scale of dx is never used
+    coef, tab = _native.launch_tables(scheme, n, float(dx), f.device)
     out = torch.empty_like(f)
     outer = math.prod(f.shape[:axis])
     inner = math.prod(f.shape[axis + 1 :])
@@ -68,10 +134,12 @@ def strided_derivative(
             out.data_ptr(),
             tab.data_ptr(),
             ctypes.byref(coef),
+            mul.data_ptr() if mul is not None else None,
+            acc.data_ptr() if acc is not None else None,
+            int(solve_only),
             outer,
             inner,
             torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "compact_strided")
-    LAUNCHES += 1
     return out

@@ -42,6 +42,7 @@ __all__ = [
     "lhs_bands",
     "rhs_matrix",
     "scheme_from_dict",
+    "transfer_function",
 ]
 
 
@@ -375,3 +376,25 @@ def rhs_matrix(scheme: CompactScheme, n: int) -> np.ndarray:
             m = len(row.rhs_stencil)
             B[i, n - m :] = row.rhs_stencil[::-1]
     return B
+
+
+def transfer_function(scheme: CompactScheme, k) -> np.ndarray:
+    """Periodic-interior spectral response of the scheme at the scaled
+    wavenumber ``k`` (k_phys * dx, in [0, pi]), after Lele 1992:
+
+    * derivative_order 1: the modified wavenumber k'(k); the scheme
+      multiplies exp(i k x / dx) by i k' / dx (exact: k' = k);
+    * derivative_order 2: the modified squared wavenumber k''(k); the
+      scheme multiplies exp(i k x / dx) by -k'' / dx**2 (exact: k'' = k**2);
+    * derivative_order 0 (filters): the gain G(k).
+    """
+    k = np.asarray(k, np.float64)
+    lhs = 1.0 + 2.0 * scheme.alpha * np.cos(k)
+    w = np.asarray(scheme.rhs_weights)
+    j = np.asarray(scheme.rhs_offsets)
+    if scheme.derivative_order == 1:
+        return 2.0 * (w[:, None] * np.sin(np.outer(j, k))).sum(0) / lhs
+    num = scheme.rhs_center + 2.0 * (w[:, None] * np.cos(np.outer(j, k))).sum(0)
+    if scheme.derivative_order == 2:
+        return -num / lhs
+    return num / lhs

@@ -11,8 +11,9 @@ script exits non-zero without printing the final line:
 1. device   — a CUDA card must be present; its name and power limit as
               nvidia-smi reports them; TF32 off for every float32 product.
 2. build    — nvcc builds kernels K1 (compact_lane), K2 (compact_strided),
-              K3 (adv_lap) and K4 (rk3_mega) for sm_90a from
-              cfd_tpu_torch/csrc/, one nvcc per source, in parallel.
+              K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3) and K6 (div_rhs)
+              for sm_90a from cfd_tpu_torch/csrc/, one nvcc per source, in
+              parallel.
 3. kernels  — each kernel against its plain PyTorch version (dense
               operators, float64, on the same float32 inputs):
               K1/K2 at 256^3 for the four first- and the four
@@ -20,23 +21,34 @@ script exits non-zero without printing the final line:
               smooth one, and on ragged shapes; K3 and K4 at 256^3 for the
               two periodic scheme pairs (K4 on the first, a middle and the
               last substep, at nu = 1e-3 and at dt * nu = 1, where the
-              Laplacian is O(1) of the update) and at (40, 96, 200). Gate:
-              max|err| <= 1e-5 * max|ref|, 5e-5 for second derivatives
-              with closure rows.
+              Laplacian is O(1) of the update) and at (40, 96, 200); K2's
+              solve_only, acc and mul modes for the four first-derivative
+              schemes, K5 and K6 for the two periodic pairs (K5 also
+              against three K3 launches) and pair_subtract (K1 + K2 with
+              acc) for the two periodic d1 schemes, at 256^3 and at
+              (40, 96, 200). Gate: max|err| <= 1e-5 * max|ref|, 5e-5 for
+              second derivatives with closure rows.
 4. accuracy — dfdx of sin(x) against cos(x) (5e-4) and d2fdx2 of sin(x)
-              against -sin(x) (2e-3), at 256^3.
-5. slices   — 5 RK3 advection–diffusion steps at 256^3 float32 through
-              method="auto", each against the same steps on the plain
-              float64 path (gates 1e-5 * max|f| and 1e-3 * max|increment|),
-              with the kernels' launch counts: slice 1 (first derivatives,
-              K1 + K2), slice 2 fused (SCHEME4_PERIODIC with the compact-d2
-              Laplacian: K3 + K4) at nu = 1e-3 and at nu = 0.05 (where the
-              diffusion moves f well past the gate), slice 2 non-periodic
-              (SCHEME4 with the d2 Laplacian: no fused substep, K1 + K2).
+              against -sin(x) (2e-3), at 256^3; the float32 Poisson solve
+              (cuFFT) against a host float64 FFT (1e-5 of max|p|,
+              benchmarks/diag_ns.py's gate) and max|div(project(u))| /
+              max|u| (1e-4, the same script's), at 256^3.
+5. slices   — 5 RK3 steps at 256^3 float32 through method="auto", each
+              against the same steps on the plain float64 path (gates 1e-5
+              * max|f| and 1e-3 * max|increment|), with the kernels' launch
+              counts, zeroed before each slice: advection–diffusion slice 1
+              (first derivatives, K1 + K2), slice 2 fused
+              (SCHEME4_PERIODIC with the compact-d2 Laplacian: K3 + K4) at
+              nu = 1e-3 and at nu = 0.05 (where the diffusion moves f well
+              past the gate), slice 2 non-periodic (SCHEME4 with the d2
+              Laplacian: no fused substep, K1 + K2); Burgers (K5 + K4) at
+              nu = 1e-2; Navier–Stokes (K5 + K4, the projection's K6, K2
+              solve, pair_subtract, K2 acc) at nu = 1e-3 and at nu = 0.05.
 6. times    — CUDA-event medians at 256^3, in turns: each kernel against
-              its plain float32 version (and a single PyTorch matmul where
-              one computes the same function), a copy floor, and the RK3
-              step of each configuration.
+              its plain float32 version (and a single PyTorch call where
+              one computes the same function), K5 against three K3
+              launches, a copy floor, the Poisson round trip, one
+              projection, and the step of each configuration.
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -51,18 +63,21 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 import cfd_tpu_torch as ct
 from cfd_tpu_torch.models import (
     AdvectionDiffusion,
+    Burgers,
     Derivs,
+    NavierStokes,
     benchmark_field,
     coordinates,
     sine_field,
     taylor_green,
 )
-from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, megastep, strided
+from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, megastep, pair, poisson, strided, vec
 from cfd_tpu_torch.utils import cuda_time_ms
 
 N = 256
@@ -109,6 +124,14 @@ STEPS, DT, NU = 5, 1e-3, 1e-3
 # RK3 stays stable: nu * dt * 18 / dx^2 (the d2 operator's largest
 # eigenvalue, 6 / dx^2 per axis) is 1.5, under 2.5.
 NU_VISCOUS = 0.05
+# Burgers and Navier–Stokes: the JAX package's viscosities (burgers.py's
+# default, benchmarks/diag_ns.py's nu), and a Navier–Stokes slice at
+# NU_VISCOUS, where nu * lap u moves u by ~7e-4 over 5 steps, 70x the gate.
+NU_BURGERS = 1e-2
+NU_NS = 1e-3
+POISSON_GATE = 1e-5  # benchmarks/diag_ns.py:88, against a host float64 FFT
+DIV_GATE = 1e-4  # max|div u| / max|u| after a projection, diag_ns.py:59
+FIELD_SEED = 20261017  # the smooth perturbation of the Navier–Stokes probe
 RK3_MID = dict(a=-5.0 / 9.0, b=15.0 / 16.0, dt=DT, nu=NU)  # the second substep's
 # K4 with dt * nu = 1: the Laplacian's share of q' and f' is O(1), so a
 # wrong d2 solve fails the gate (at NU it is ~2e-6 of max|q'|).
@@ -140,14 +163,71 @@ KERNELS = {
         "source": "cfd_tpu_torch/csrc/rk3_mega.cu",
         "replaces": "cfd_tpu/ops/pallas_megastep.py:95 (_mega_kernel)",
     },
+    "compact_strided_solve": {
+        "source": "cfd_tpu_torch/csrc/compact_strided.cu",
+        "replaces": "cfd_tpu/ops/pallas_leading.py:157 (_leading_kernel, solve_only mode)",
+    },
+    "compact_strided_acc": {
+        "source": "cfd_tpu_torch/csrc/compact_strided.cu",
+        "replaces": "cfd_tpu/ops/pallas_leading.py:157 (_leading_kernel, acc mode)",
+    },
+    "compact_strided_mul": {
+        "source": "cfd_tpu_torch/csrc/compact_strided.cu",
+        "replaces": "cfd_tpu/ops/pallas_leading.py:157 (_leading_kernel, mul mode)",
+    },
+    "pair_subtract": {
+        "source": "cfd_tpu_torch/csrc/compact_lane.cu; cfd_tpu_torch/csrc/compact_strided.cu",
+        "replaces": "cfd_tpu/ops/pallas_pair.py:313 (_pair_sub_kernel)",
+    },
+    "adv_lap3": {
+        "source": "cfd_tpu_torch/csrc/adv_lap3.cu",
+        "replaces": "cfd_tpu/ops/pallas_lap.py:761 (_adv_lap3_kernel)",
+    },
+    "div_rhs": {
+        "source": "cfd_tpu_torch/csrc/div_rhs.cu",
+        "replaces": "cfd_tpu/ops/pallas_vec.py:197 (_div_kernel)",
+    },
 }
-COUNTERS = {"compact_lane": lane, "compact_strided": strided, "adv_lap": adv_lap,
-            "rk3_mega": megastep}
+
+
+def launch_counts() -> dict:
+    """Every wrapper's launch count, by kernel (K2 by mode)."""
+    modes = strided.MODE_LAUNCHES
+    return {
+        "compact_lane": lane.LAUNCHES, "compact_strided": modes["derivative"],
+        "adv_lap": adv_lap.LAUNCHES, "rk3_mega": megastep.LAUNCHES,
+        "compact_strided_solve": modes["solve"], "compact_strided_acc": modes["acc"],
+        "compact_strided_mul": modes["mul"], "pair_subtract": pair.LAUNCHES,
+        "adv_lap3": adv_lap.LAUNCHES3, "div_rhs": vec.LAUNCHES,
+    }
+
+
+def zero_launch_counts() -> None:
+    lane.LAUNCHES = strided.LAUNCHES = adv_lap.LAUNCHES = adv_lap.LAUNCHES3 = 0
+    megastep.LAUNCHES = vec.LAUNCHES = pair.LAUNCHES = 0
+    for mode in strided.MODE_LAUNCHES:
+        strided.MODE_LAUNCHES[mode] = 0
+
+
+def path(**launches) -> dict:
+    """The launch counts a path implies: those given, 0 for every other kernel."""
+    return {name: launches.get(name, 0) for name in KERNELS}
+
+
 # Least bytes each kernel must move per point at the timed call (f32 inputs
-# read once, outputs written once), and the operations it does per point,
-# counted from its arithmetic (line RHS ~17, forward sweep 4, backward 5).
-BYTES_PER_POINT = {"compact_lane": 8, "compact_strided": 8, "adv_lap": 20, "rk3_mega": 28}
-FLOPS_PER_POINT = {"compact_lane": 26, "compact_strided": 26, "adv_lap": 127, "rk3_mega": 44}
+# read once, outputs written once: K5 3 reads and 6 writes, K6 3 and 1,
+# pair_subtract 3 and 2, the K2 modes 1 + one per mul/acc and 1), and the
+# operations it does per point, counted from its arithmetic (line RHS ~17,
+# forward sweep 4, backward 5; K6 two line solves, T_z and B_z; K5 three
+# K3s).
+BYTES_PER_POINT = {"compact_lane": 8, "compact_strided": 8, "adv_lap": 20, "rk3_mega": 28,
+                   "compact_strided_solve": 8, "compact_strided_acc": 12,
+                   "compact_strided_mul": 16, "pair_subtract": 20, "adv_lap3": 36,
+                   "div_rhs": 16}
+FLOPS_PER_POINT = {"compact_lane": 26, "compact_strided": 26, "adv_lap": 127, "rk3_mega": 44,
+                   "compact_strided_solve": 9, "compact_strided_acc": 27,
+                   "compact_strided_mul": 28, "pair_subtract": 54, "adv_lap3": 381,
+                   "div_rhs": 64}
 
 
 def emit(obj) -> None:
@@ -277,6 +357,53 @@ def _fused_cases(stats, failures, g, dev):
                         failures.append(f"rk3_mega {label}: q' returned with write_q=False")
 
 
+def _slice3_cases(stats, failures, g, dev):
+    """K2's epilogues, pair_subtract, K5 and K6 at the shapes NS runs them."""
+    d1_periodic = [s for s, _ in FUSED_PAIRS]
+    for shape in ((N, N, N), RAGGED):
+        dz, dy, dx = (2 * math.pi / n for n in shape)
+        f, a, m = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        f64, a64, m64 = f.double(), a.double(), m.double()
+        for scheme in D1_SCHEMES:
+            label = f"{scheme.name} {tuple(shape)}"
+            _compare(stats, "compact_strided_solve", f"z {label}",
+                     strided.leading_solve(f, scheme),
+                     strided.leading_solve_ref(f64, scheme), failures)
+            # the projection's uz - dphi/dz: acc with spacing -dz
+            _compare(stats, "compact_strided_acc", f"z -dz {label}",
+                     strided.strided_derivative(f, -dz, scheme, 0, acc=a),
+                     strided.strided_derivative_ref(f64, -dz, scheme, 0, acc=a64), failures)
+            _compare(stats, "compact_strided_mul", f"z {label}",
+                     strided.strided_derivative(f, dz, scheme, 0, acc=a, mul=m),
+                     strided.strided_derivative_ref(f64, dz, scheme, 0, acc=a64, mul=m64),
+                     failures)
+        for scheme in d1_periodic:
+            label = f"{scheme.name} {tuple(shape)}"
+            got = pair.pair_subtract(f, a, m, dy, dx, scheme)
+            ref = pair.pair_subtract_ref(f64, a64, m64, dy, dx, scheme)
+            for out, g_, r_ in zip(("x", "y"), got, ref):
+                _compare(stats, "pair_subtract", f"{out} {label}", g_, r_, failures)
+            _compare(stats, "div_rhs", label, vec.div_rhs(f, a, m, dz, dy, dx, scheme),
+                     vec.div_rhs_ref(f64, a64, m64, dz, dy, dx, scheme), failures)
+        del f64, a64, m64
+        u = (f, a, m)
+        for s1, s2 in FUSED_PAIRS:
+            label = f"{s1.name}+{s2.name} {tuple(shape)}"
+            got = adv_lap.adv_lap_rhs3(u, dz, dy, dx, s1, s2)
+            ref = adv_lap.adv_lap_rhs3_ref(tuple(c.double() for c in u), dz, dy, dx, s1, s2)
+            gap = 0.0  # K5 against three K3 launches on the same components
+            for i in range(3):
+                for out, g_, r_ in zip(("axy", "r"), (got[0][i], got[1][i]),
+                                       (ref[0][i], ref[1][i])):
+                    _compare(stats, "adv_lap3", f"{out}{i} {label}", g_, r_, failures)
+                k3 = adv_lap.adv_lap_rhs(u[i], u[0], u[1], dz, dy, dx, s1, s2)
+                gap = max(gap, *((x - y).abs().max().item()
+                                 for x, y in zip((got[0][i], got[1][i]), k3)))
+            del ref
+            emit({"phase": "kernels", "kernel": "adv_lap3", "case": f"vs 3 x adv_lap {label}",
+                  "max_abs_gap": gap})
+
+
 def phase_kernels(dev) -> dict:
     stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS}
     failures = []
@@ -289,6 +416,7 @@ def phase_kernels(dev) -> dict:
     _derivative_cases(stats, failures, D1_SCHEMES, fields, g, dev)
     _derivative_cases(stats, failures, D2_SCHEMES, fields, g, dev)
     _fused_cases(stats, failures, g, dev)
+    _slice3_cases(stats, failures, g, dev)
     if failures:
         raise AssertionError("kernel vs plain over the gate: " + "; ".join(failures))
     return stats
@@ -311,6 +439,38 @@ def phase_accuracy(dev) -> None:
         if not err < gate:
             raise AssertionError(f"{case}: error {err:.3e} >= {gate}")
 
+    # cuFFT's float32 Poisson solve against a host float64 FFT on the same
+    # float32 right-hand side (benchmarks/diag_ns.py found the TPU's f32 FFT
+    # 28% off on Nyquist-plane modes, and gates at 1e-5)
+    scheme = ct.SCHEME4_PERIODIC
+    rng = np.random.default_rng(20261016)
+    rhs = rng.standard_normal((N, N, N)).astype(np.float32)
+    rhs -= rhs.mean(dtype=np.float64).astype(np.float32)
+    lam = poisson.laplacian_eigenvalues(scheme, rhs.shape, (dx, dx, dx))
+    inv = np.zeros_like(lam)
+    inv[lam != 0.0] = 1.0 / lam[lam != 0.0]
+    p_ref = np.fft.irfftn(np.fft.rfftn(rhs.astype(np.float64)) * inv, s=rhs.shape,
+                          axes=(0, 1, 2))
+    p = ct.solve_poisson(torch.from_numpy(rhs).to(dev), dx, scheme).cpu().numpy()
+    rel = float(np.abs(p - p_ref).max() / np.abs(p_ref).max())
+    emit({"phase": "accuracy", "case": f"solve_poisson {scheme.name} {N}^3 f32 (cuFFT) vs "
+          "host f64 FFT", "rel_err": rel, "gate": POISSON_GATE, "ok": rel <= POISSON_GATE})
+    if not rel <= POISSON_GATE:
+        raise AssertionError(f"solve_poisson: rel error {rel:.3e} > {POISSON_GATE}")
+    del rhs, p_ref, p, lam, inv
+
+    # the compact projection removes what the fused divergence sees
+    u = _ns_velocity(dev, torch.float32)
+    up = ct.project(u, dx, scheme)
+    speed = torch.sqrt(sum(c * c for c in u)).max().item()
+    div = ct.divergence(up, dx, scheme).abs().max().item() / speed
+    before = ct.divergence(u, dx, scheme).abs().max().item() / speed
+    emit({"phase": "accuracy", "case": f"max|div(project(u))| / max|u| {N}^3 f32, compact "
+          "projection", "rel_divergence": div, "before_projection": before,
+          "gate": DIV_GATE, "ok": div <= DIV_GATE})
+    if not div <= DIV_GATE:
+        raise AssertionError(f"project: divergence {div:.3e} > {DIV_GATE}")
+
 
 def _model(dev, scheme, method, dtype, second_derivative=False, nu=NU):
     c = coordinates(N, device=dev)
@@ -321,8 +481,41 @@ def _model(dev, scheme, method, dtype, second_derivative=False, nu=NU):
     return AdvectionDiffusion(derivs, nu=nu), f0.to(dtype), tuple(v.to(dtype) for v in u)
 
 
-K1K2_PATH = {"compact_lane": 6 * STEPS, "compact_strided": 12 * STEPS, "adv_lap": 0, "rk3_mega": 0}
-FUSED_PATH = {"compact_lane": 0, "compact_strided": 0, "adv_lap": 3 * STEPS, "rk3_mega": 3 * STEPS}
+def _ns_velocity(dev, dtype):
+    """The Navier–Stokes probe at 256^3: Taylor–Green (whose uz = 0 would
+    hide K4's uz * dz term and K6's z parts) plus a seeded smooth
+    perturbation in every component, projected in float64 and cast to
+    ``dtype``."""
+    c = coordinates(N, device=dev, dtype=torch.float64)
+    Z, Y, X = c[:, None, None], c[None, :, None], c[None, None, :]
+    amp = np.random.default_rng(FIELD_SEED).uniform(-0.2, 0.2, (3, 3))
+    u = [v + a * torch.sin(Z + b) * torch.cos(X + d) + b * torch.cos(Y + a) * torch.sin(Z)
+         for v, (a, b, d) in zip(taylor_green(c, c, c), amp)]
+    u = poisson.project(tuple(v.contiguous() for v in u), 2 * math.pi / N, ct.SCHEME4_PERIODIC,
+                        method="spectral")
+    return tuple(v.to(dtype) for v in u)
+
+
+def _velocity_model(kind, dev, method, nu):
+    dx = 2 * math.pi / N
+    if kind == "ns":
+        return NavierStokes.single_device(dx, ct.SCHEME4_PERIODIC, nu=nu, method=method)
+    derivs = Derivs.single_device(dx, ct.SCHEME4_PERIODIC, method, second_derivative=True)
+    return Burgers(derivs, nu=nu)
+
+
+K1K2_PATH = path(compact_lane=6 * STEPS, compact_strided=12 * STEPS)
+FUSED_PATH = path(adv_lap=3 * STEPS, rk3_mega=3 * STEPS)
+BURGERS_PATH = path(adv_lap3=3 * STEPS, rk3_mega=9 * STEPS)
+NS_PATH = path(adv_lap3=3 * STEPS, rk3_mega=9 * STEPS, div_rhs=3 * STEPS,
+               compact_strided_solve=3 * STEPS, pair_subtract=3 * STEPS,
+               compact_strided_acc=3 * STEPS)
+VELOCITY_SLICES = {
+    # name: (model, nu, launches expected over STEPS steps)
+    "slice3_burgers": ("burgers", NU_BURGERS, BURGERS_PATH),
+    "slice3_ns": ("ns", NU_NS, NS_PATH),
+    "slice3_ns_viscous": ("ns", NU_VISCOUS, NS_PATH),
+}
 SLICES = {
     # name: (scheme, second_derivative, nu, launches expected over STEPS steps)
     "slice1": (ct.SCHEME4_PERIODIC, False, NU, K1K2_PATH),
@@ -337,13 +530,12 @@ def phase_slice(dev, name) -> dict:
     model, f0, u = _model(dev, scheme, "auto", torch.float32, d2, nu)
     fused = model.derivs.fused_substep is not None
     torch.cuda.synchronize()
-    for module in COUNTERS.values():
-        module.LAUNCHES = 0
+    zero_launch_counts()
     t0 = time.perf_counter()
     f = model.run(f0, u, DT, STEPS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: m.LAUNCHES for k, m in COUNTERS.items()}
+    launches = launch_counts()
 
     # float64 through the plain path: method="matmul" builds no fused
     # substep, so a fused run is held against the generic form
@@ -373,6 +565,50 @@ def phase_slice(dev, name) -> dict:
     return launches
 
 
+def phase_velocity_slice(dev, name) -> dict:
+    """5 Burgers or Navier–Stokes steps through method="auto" at 256^3 f32
+    against the same steps on the plain float64 path (the generic stage with
+    dense operators; for Navier–Stokes the spectral projection)."""
+    kind, nu, want = VELOCITY_SLICES[name]
+    model = _velocity_model(kind, dev, "auto", nu)
+    u64 = _ns_velocity(dev, torch.float64)
+    u0 = tuple(c.float() for c in u64)
+    u64 = tuple(c.double() for c in u0)  # both runs start from the same f32 field
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    u = model.run(u0, DT, STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+
+    ref = _velocity_model(kind, dev, "matmul", nu).run(u64, DT, STEPS)
+    scale = max(c.abs().max().item() for c in ref)
+    err = max((a.double() - b).abs().max().item() for a, b in zip(u, ref))
+    inc = max((b - a).abs().max().item() for a, b in zip(u64, ref))
+    inviscid = _velocity_model(kind, dev, "matmul", 0.0).run(u64, DT, STEPS)
+    diffusion = max((a - b).abs().max().item() for a, b in zip(ref, inviscid)) / scale
+    del inviscid
+    finite = all(bool(torch.isfinite(c).all().item()) for c in u)
+    ok = (finite and all(c.shape == (N, N, N) and c.dtype == torch.float32 for c in u)
+          and err / scale <= SLICE_GATE and err / inc <= INC_GATE and launches == want)
+    line = {"phase": "slice", "slice": name,
+            "case": f"{type(model).__name__} {ct.SCHEME4_PERIODIC.name} {N}^3 f32, {STEPS} RK3 "
+            f"steps dt={DT} nu={nu}", "method": "auto",
+            "max_abs_err_vs_f64_plain": err, "rel_err": err / scale, "gate": SLICE_GATE,
+            "rel_err_of_increment": err / inc, "increment_gate": INC_GATE,
+            "diffusion_share_of_max_u": diffusion, "finite": finite, "launches": launches,
+            "launches_expected": want, "wall_s_incl_first_calls": wall}
+    if kind == "ns":
+        speed = torch.sqrt(sum(c * c for c in u)).max().item()
+        line["rel_divergence_after"] = model.divergence(u).abs().max().item() / speed
+        ok = ok and line["rel_divergence_after"] <= DIV_GATE
+    emit({**line, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} failed: see its slice line")
+    return launches
+
+
 def _turns(plain, kernel) -> dict:
     """CUDA-event medians in turns (plain, kernel, kernel, plain), averaged."""
     p1 = cuda_time_ms(plain)
@@ -394,6 +630,76 @@ def _library_ms(f, scheme, dx, axis) -> float:
     else:
         a, b = M, f.view(math.prod(f.shape[:axis % f.ndim]), n, -1)
     return cuda_time_ms(lambda: torch.matmul(a, b))
+
+
+def _z_library_ms(M, f, acc=None) -> float:
+    """One PyTorch call with the dense (n, n) float64 matrix M along z of f:
+    torch.matmul, or torch.addmm adding acc (timed here only)."""
+    n = f.shape[0]
+    a = torch.as_tensor(M, dtype=f.dtype, device=f.device)
+    b = f.view(n, -1)
+    if acc is None:
+        return cuda_time_ms(lambda: torch.matmul(a, b))
+    c = acc.view(n, -1)
+    return cuda_time_ms(lambda: torch.addmm(c, a, b))
+
+
+def _slice3_times(times, f, g, dev) -> None:
+    """K2's modes, pair_subtract, K6 and K5 at 256^3 as the Navier–Stokes
+    step calls them, each in turns with its plain float32 version."""
+    dx = 2 * math.pi / N
+    s1, s2 = FUSED_PAIRS[0]
+    a, m = (torch.randn((N, N, N), generator=g, device=dev) for _ in range(2))
+    times["compact_strided_solve"] = _turns(lambda: strided.leading_solve_ref(f, s1),
+                                            lambda: strided.leading_solve(f, s1))
+    times["compact_strided_solve"]["library_ms"] = _z_library_ms(
+        np.linalg.inv(dense.lhs_matrix(s1, N)), f)
+    times["compact_strided_acc"] = _turns(
+        lambda: strided.strided_derivative_ref(f, -dx, s1, 0, acc=a),
+        lambda: strided.strided_derivative(f, -dx, s1, 0, acc=a))
+    times["compact_strided_acc"]["library_ms"] = _z_library_ms(
+        dense.dense_operator(s1, N) / -dx, f, acc=a)
+    times["compact_strided_mul"] = _turns(
+        lambda: strided.strided_derivative_ref(f, dx, s1, 0, acc=a, mul=m),
+        lambda: strided.strided_derivative(f, dx, s1, 0, acc=a, mul=m))
+    times["pair_subtract"] = _turns(lambda: pair.pair_subtract_ref(f, a, m, dx, dx, s1),
+                                    lambda: pair.pair_subtract(f, a, m, dx, dx, s1))
+    times["div_rhs"] = _turns(lambda: vec.div_rhs_ref(f, a, m, dx, dx, dx, s1),
+                              lambda: vec.div_rhs(f, a, m, dx, dx, dx, s1))
+    u = (f, a, m)
+    times["adv_lap3"] = _turns(lambda: adv_lap.adv_lap_rhs3_ref(u, dx, dx, dx, s1, s2),
+                               lambda: adv_lap.adv_lap_rhs3(u, dx, dx, dx, s1, s2))
+    # K5 against the three K3 launches it replaces, in turns
+    t = _turns(lambda: [adv_lap.adv_lap_rhs(c, f, a, dx, dx, dx, s1, s2) for c in u],
+               lambda: adv_lap.adv_lap_rhs3(u, dx, dx, dx, s1, s2))
+    times["adv_lap3_vs_3_adv_lap"] = {"adv_lap3_ms": t["kernel_ms"],
+                                      "three_adv_lap_ms": t["plain_ms"],
+                                      "readings_ms": [t["kernel_readings_ms"],
+                                                      t["plain_readings_ms"]]}
+    # the spectral subsystem: the Poisson round trip (cuFFT) and one
+    # projection in each form
+    times["solve_poisson_ms"] = cuda_time_ms(lambda: ct.solve_poisson(f, dx, s1))
+    times["project_compact_ms"] = cuda_time_ms(lambda: ct.project(u, dx, s1, method="compact"))
+    times["project_spectral_ms"] = cuda_time_ms(
+        lambda: ct.project(u, dx, s1, method="spectral"))
+    times["divergence_fused_ms"] = cuda_time_ms(lambda: ct.divergence(u, dx, s1))
+
+
+def _velocity_step_times(steps, dev) -> None:
+    """The Navier–Stokes step, and the Burgers step on each of its routes."""
+    u = _ns_velocity(dev, torch.float32)
+    ns = _velocity_model("ns", dev, "auto", NU_NS)
+    steps["ns_step_ms"] = cuda_time_ms(lambda: ns.step(u, DT), warmup=2, iters=10)
+    burgers = _velocity_model("burgers", dev, "auto", NU_BURGERS)
+    d = burgers.derivs
+    for key, derivs in (
+        ("burgers_step_vec_ms", d),
+        ("burgers_step_scalar_fused_ms", dataclasses.replace(d, fused_substep_vec=None)),
+        ("burgers_step_generic_ms",
+         dataclasses.replace(d, fused_substep_vec=None, fused_substep=None)),
+    ):
+        model = Burgers(derivs, nu=NU_BURGERS)
+        steps[key] = cuda_time_ms(lambda: model.step(u, DT), warmup=2, iters=10)
 
 
 def phase_times(dev, smi) -> dict:
@@ -431,6 +737,7 @@ def phase_times(dev, smi) -> dict:
         lambda: megastep.rk3_mega(f, r, axy, uz, None, s1, s2, dx, **RK3_MID))
     times["rk3_mega_last_ms"] = cuda_time_ms(
         lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, dx, **RK3_MID, write_q=False))
+    _slice3_times(times, f, g, dev)
     out = torch.empty_like(f)
     copy_ms = cuda_time_ms(lambda: out.copy_(f))
     steps = {}
@@ -448,6 +755,7 @@ def phase_times(dev, smi) -> dict:
     generic = AdvectionDiffusion(dataclasses.replace(model.derivs, fused_substep=None), nu=NU)
     steps["rk3_step_d2_generic_ms"] = cuda_time_ms(lambda: generic.step(f0, u, DT),
                                                    warmup=2, iters=10)
+    _velocity_step_times(steps, dev)
     pts = N**3
     emit({
         "phase": "times", "device": smi, "schemes": [s1.name, s2.name], "shape": [N, N, N],
@@ -466,6 +774,9 @@ def _summary(stats, launches, times) -> list:
         "compact_strided": ("dfdy", "dfdz"),  # K2 serves y and z equally often
         "adv_lap": ("adv_lap",),
         "rk3_mega": ("rk3_mega",),
+        **{name: (name,) for name in (
+            "compact_strided_solve", "compact_strided_acc", "compact_strided_mul",
+            "pair_subtract", "adv_lap3", "div_rhs")},
     }
     rows = []
     for name, keys in timed.items():
@@ -497,6 +808,7 @@ def main() -> None:
     stats = phase_kernels(dev)
     phase_accuracy(dev)
     launches = {name: phase_slice(dev, name) for name in SLICES}
+    launches.update({name: phase_velocity_slice(dev, name) for name in VELOCITY_SLICES})
     times = phase_times(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

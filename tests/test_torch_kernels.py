@@ -1,5 +1,6 @@
-"""The CUDA kernels K1 (compact_lane), K2 (compact_strided), K3 (adv_lap)
-and K4 (rk3_mega).
+"""The CUDA kernels K1 (compact_lane), K2 (compact_strided, with its acc,
+mul and solve_only epilogues), K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3),
+K6 (div_rhs) and pair_subtract (K1 + K2 with acc).
 
 A CUDA kernel cannot run on the CPU, so its arithmetic is held here in two
 ways:
@@ -13,8 +14,8 @@ ways:
 * on the card (``gpu`` marker; skipped without one), each kernel against
   its plain PyTorch version at the same gate, with its launch counter.
 
-The transcription covers the first- and second-derivative schemes; K3 and
-K4 run the same line solves (``compact_common.cuh``) on other sources.
+The transcription covers the first- and second-derivative schemes; K3-K6
+run the same line solves (``compact_common.cuh``) on other sources.
 """
 
 import ctypes
@@ -24,8 +25,8 @@ import pytest
 import torch
 
 import cfd_tpu_torch as ct
-from cfd_tpu_torch.models import benchmark_field, coordinates
-from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, megastep, strided
+from cfd_tpu_torch.models import NavierStokes, benchmark_field, coordinates, taylor_green
+from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, megastep, pair, strided, vec
 from cfd_tpu_torch.schemes import rhs_matrix
 
 D1_SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME6, ct.SCHEME6_PERIODIC]
@@ -338,6 +339,132 @@ def test_fused_kernels_refuse_what_they_do_not_take(cuda):
         megastep.rk3_mega(f.double(), f.double(), f.double(), f.double(), None, s1, s2, 0.1, **kw)
     with pytest.raises(ValueError, match="contiguous"):
         megastep.rk3_mega(f, f, f, f, f.transpose(1, 2).contiguous().transpose(1, 2), s1, s2, 0.1, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["acc", "mul"])
+@pytest.mark.parametrize("axis,shape", [(0, (64, 16, 128)), (1, (5, 96, 40)), (0, (40, 96, 200))])
+@pytest.mark.parametrize("scheme", D1_SCHEMES, ids=IDS[:4])
+def test_strided_epilogues_match_plain(cuda, scheme, axis, shape, mode):
+    g = torch.Generator(device="cpu").manual_seed(10)
+    f, m, a = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    before = strided.MODE_LAUNCHES[mode]
+    mul = m if mode == "mul" else None
+    got = strided.strided_derivative(f, -0.05, scheme, axis, acc=a, mul=mul)
+    torch.cuda.synchronize()
+    assert strided.MODE_LAUNCHES[mode] == before + 1
+    ref = strided.strided_derivative_ref(f.double(), -0.05, scheme, axis, acc=a.double(),
+                                         mul=None if mul is None else mul.double())
+    assert _rel_err(got, ref) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 16, 128), (40, 96, 200), (7, 3, 5)])
+@pytest.mark.parametrize("scheme", SCHEMES, ids=IDS)
+def test_leading_solve_matches_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(15)
+    r = torch.randn(shape, generator=g).to(cuda)
+    before = strided.MODE_LAUNCHES["solve"]
+    got = strided.leading_solve(r, scheme)
+    torch.cuda.synchronize()
+    assert strided.MODE_LAUNCHES["solve"] == before + 1
+    assert _rel_err(got, strided.leading_solve_ref(r.double(), scheme)) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 256, 256), (40, 96, 200), (2, 7, 9)])
+@pytest.mark.parametrize("scheme", D1_SCHEMES, ids=IDS[:4])
+def test_pair_subtract_kernel_matches_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(11)
+    f, ax, ay = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    before = (pair.LAUNCHES, lane.LAUNCHES, strided.LAUNCHES)
+    got = pair.pair_subtract(f, ax, ay, 0.03, 0.02, scheme)
+    torch.cuda.synchronize()
+    assert (pair.LAUNCHES, lane.LAUNCHES, strided.LAUNCHES) == (before[0] + 1, *before[1:])
+    ref = pair.pair_subtract_ref(f.double(), ax.double(), ay.double(), 0.03, 0.02, scheme)
+    for g_, r_ in zip(got, ref):
+        assert _rel_err(g_, r_) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(6, 40, 128), (40, 96, 200), (5, 7, 9)])
+@pytest.mark.parametrize("schemes", FUSED, ids=FUSED_IDS)
+def test_adv_lap3_kernel_matches_plain_and_k3(cuda, schemes, shape):
+    s1, s2 = schemes
+    g = torch.Generator(device="cpu").manual_seed(12)
+    u = tuple(torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    before = adv_lap.LAUNCHES3
+    axy, r = adv_lap.adv_lap_rhs3(u, 0.03, 0.02, 0.01, s1, s2)
+    torch.cuda.synchronize()
+    assert adv_lap.LAUNCHES3 == before + 1
+    ref = adv_lap.adv_lap_rhs3_ref(tuple(c.double() for c in u), 0.03, 0.02, 0.01, s1, s2)
+    for i in range(3):
+        assert _rel_err(axy[i], ref[0][i]) <= F32_GATE
+        assert _rel_err(r[i], ref[1][i]) <= F32_GATE
+        # the same arithmetic as K3 on the same component: bit for bit
+        a1, r1 = adv_lap.adv_lap_rhs(u[i], u[0], u[1], 0.03, 0.02, 0.01, s1, s2)
+        assert torch.equal(axy[i], a1) and torch.equal(r[i], r1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 16, 128), (40, 96, 200), (5, 7, 9)])
+@pytest.mark.parametrize("scheme", [ct.SCHEME4_PERIODIC, ct.SCHEME6_PERIODIC], ids=FUSED_IDS)
+def test_div_rhs_kernel_and_fused_divergence_match_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(13)
+    u = tuple(torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    u64 = tuple(c.double() for c in u)
+    before = (vec.LAUNCHES, strided.MODE_LAUNCHES["solve"])
+    r = vec.div_rhs(*u, 0.04, 0.03, 0.02, scheme)
+    d = ct.divergence(u, (0.04, 0.03, 0.02), scheme)
+    torch.cuda.synchronize()
+    assert (vec.LAUNCHES, strided.MODE_LAUNCHES["solve"]) == (before[0] + 2, before[1] + 1)
+    assert _rel_err(r, vec.div_rhs_ref(*u64, 0.04, 0.03, 0.02, scheme)) <= F32_GATE
+    ref = ct.divergence(u64, (0.04, 0.03, 0.02), scheme, method="matmul")
+    assert _rel_err(d, ref) <= F32_GATE
+
+
+@pytest.mark.gpu
+def test_navier_stokes_step_runs_the_kernels(cuda):
+    """One NS step at (16, 32, 64) on the card: every kernel of the path and
+    no plain version, against the float64 plain path."""
+    shape = (16, 32, 64)
+    c = [coordinates(n, device=cuda) for n in shape]
+    g = torch.Generator(device="cpu").manual_seed(14)
+    u = tuple(v + 0.1 * torch.randn(shape, generator=g).to(cuda) for v in taylor_green(*c))
+    spacing = tuple(2 * np.pi / n for n in shape)
+    ns = NavierStokes.single_device(spacing, ct.SCHEME4_PERIODIC, nu=1e-2)
+    u = ns.project(u)
+    counters = (lane, adv_lap, megastep, vec, pair)
+    before = [m.LAUNCHES for m in counters] + [adv_lap.LAUNCHES3, dict(strided.MODE_LAUNCHES)]
+    out = ns.step(u, 1e-3)
+    torch.cuda.synchronize()
+    after = [m.LAUNCHES for m in counters] + [adv_lap.LAUNCHES3, dict(strided.MODE_LAUNCHES)]
+    assert [a - b for a, b in zip(after[:5], before[:5])] == [0, 0, 9, 3, 3]
+    assert after[5] - before[5] == 3
+    assert {k: after[6][k] - before[6][k] for k in after[6]} == {
+        "derivative": 0, "acc": 3, "mul": 0, "solve": 3}
+    ref_ns = NavierStokes.single_device(spacing, ct.SCHEME4_PERIODIC, nu=1e-2, method="matmul")
+    ref = ref_ns.step(tuple(v.double() for v in u), 1e-3)
+    scale = max(v.abs().max().item() for v in ref)
+    for got, want in zip(out, ref):
+        assert (got.double() - want).abs().max().item() <= 1e-5 * scale
+    assert ns.divergence(out).abs().max().item() <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+def test_slice3_kernels_refuse_what_they_do_not_take(cuda):
+    s1, s2 = FUSED[0]
+    f = torch.ones(8, 16, 32, device=cuda)
+    with pytest.raises(TypeError):
+        vec.div_rhs(f.double(), f.double(), f.double(), 0.1, 0.1, 0.1, s1)
+    with pytest.raises(TypeError):
+        adv_lap.adv_lap_rhs3((f.double(),) * 3, 0.1, 0.1, 0.1, s1, s2)
+    with pytest.raises(ValueError, match="contiguous"):
+        pair.pair_subtract(f, f.transpose(1, 2).contiguous().transpose(1, 2), f, 0.1, 0.1, s1)
+    with pytest.raises(TypeError):
+        strided.leading_solve(f.double(), s1)
+    with pytest.raises(TypeError):
+        ct.divergence((f.double(),) * 3, 0.1, s1)  # 'auto' on float64 CUDA tensors
 
 
 if __name__ == "__main__":

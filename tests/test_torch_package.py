@@ -36,6 +36,8 @@ def test_import_loads_no_jax():
         "import sys, cfd_tpu_torch, cfd_tpu_torch.models, cfd_tpu_torch.oracle\n"
         "import cfd_tpu_torch.utils, cfd_tpu_torch.ops._native\n"
         "import cfd_tpu_torch.ops.adv_lap, cfd_tpu_torch.ops.megastep, cfd_tpu_torch.ops.fused_step\n"
+        "import cfd_tpu_torch.ops.vec, cfd_tpu_torch.ops.pair, cfd_tpu_torch.ops.poisson\n"
+        "import cfd_tpu_torch.models.burgers, cfd_tpu_torch.models.navier_stokes\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfd_tpu.'))))"
     )
     assert done.returncode == 0, done.stderr
@@ -59,6 +61,17 @@ def test_chip_smoke_imports_no_jax():
             assert "jax" not in words and "cfd_tpu" not in words, line
 
 
+def test_no_module_of_the_port_imports_jax_or_cfd_tpu():
+    """No line of any module of the port imports jax or the JAX package,
+    not even inside a function (the import test above sees only what an
+    import loads)."""
+    for path in sorted((ROOT / "cfd_tpu_torch").rglob("*.py")):
+        for line in path.read_text().splitlines():
+            words = line.replace(".", " ").split()
+            if words[:1] in (["import"], ["from"]):
+                assert "jax" not in words and "cfd_tpu" not in words, f"{path}: {line}"
+
+
 def test_native_import_needs_no_nvcc():
     done = _python(
         "import cfd_tpu_torch.ops._native as n; print(n.SOURCES)",
@@ -79,7 +92,8 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
 
 
 def test_sources_are_present():
-    kernels = {"compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu"}
+    kernels = {"compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu",
+               "adv_lap3.cu", "div_rhs.cu"}
     assert kernels <= set(_native.SOURCES)
     for name in _native.SOURCES + _native.HEADERS:
         assert (_native.CSRC / name).is_file()
