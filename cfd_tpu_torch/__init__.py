@@ -1,8 +1,9 @@
 """cfd_tpu_torch — the PyTorch/CUDA port of cfd_tpu.
 
-Compact (Padé) first and second derivatives of 3-D fields, the gradient,
-divergence and compact-d2 Laplacian, the spectral Poisson solve and
-Helmholtz projection, and the RK3 advection–diffusion, Burgers and
+Compact (Padé) first and second derivatives and compact filters of 3-D
+fields, the gradient, divergence, curl and compact-d2 Laplacian, the
+spectral Poisson solve and Helmholtz projection, the spectral diagnostics
+(``ops.spectra``), and the RK3 advection–diffusion, Burgers and
 Navier–Stokes steppers with their fused substeps, on PyTorch with
 hand-written CUDA kernels for Hopper (``csrc/``). The JAX package
 ``cfd_tpu`` beside it is the reference the port is held against; this
@@ -11,6 +12,7 @@ package never imports it or ``jax``.
 
 from . import models, ops, oracle, schemes, utils
 from .ops import (
+    curl,
     d2fdx2,
     d2fdy2,
     d2fdz2,
@@ -19,6 +21,7 @@ from .ops import (
     dfdy,
     dfdz,
     divergence,
+    filter_field,
     gradient,
     laplacian,
     project,
@@ -34,6 +37,7 @@ from .schemes import (
     SCHEME6_D2_PERIODIC,
     SCHEME6_PERIODIC,
     CompactScheme,
+    get_filter,
     get_scheme,
     scheme_from_dict,
 )
@@ -50,6 +54,8 @@ __all__ = [
     "dfdz",
     "gradient",
     "divergence",
+    "curl",
+    "filter_field",
     "solve_poisson",
     "project",
     "d2fdx2",
@@ -65,6 +71,7 @@ __all__ = [
     "SCHEME6_D2",
     "SCHEME6_D2_PERIODIC",
     "CompactScheme",
+    "get_filter",
     "get_scheme",
     "scheme_from_dict",
 ]

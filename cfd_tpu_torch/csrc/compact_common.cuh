@@ -50,7 +50,10 @@ struct Coef {
 // sum_m c_m (f_m - f_i) + (sum_m c_m) f_i. For a derivative each row
 // annihilates constants, so the last term is zero and f's mean never
 // enters the sum; a wall row of SCHEME6 (six taps, weights up to 5) formed
-// from the raw values loses about 3e-5 of a unit-scale f' in float32.
+// from the raw values loses about 3e-5 of a unit-scale f' in float32. A
+// filter's rows keep constants: the last term is (1 + 2 alpha) f_i on the
+// interior (`center`) and f_i on its identity closure rows (`left_sum` =
+// 1, one tap of weight 1 at m = i), which therefore return f_i exactly.
 //
 // A second derivative's row annihilates linear functions too, and its
 // value is O(dx^2 f'') against taps of O(f): on a smooth field at n = 256

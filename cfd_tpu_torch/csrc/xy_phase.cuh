@@ -1,21 +1,32 @@
 // The right-hand sides that move T_z through the xy derivatives, shared by
-// K3 (adv_lap.cu), K5 (adv_lap3.cu) and K6 (div_rhs.cu). For a float32
-// (nz, ny, nx) field and a periodic scheme with z operators T_z (LHS) and
-// B_z / dz**order (RHS), each "family" writes one output, of one of two
-// kinds:
+// K3 (adv_lap.cu), K5 (adv_lap3.cu), K6 (div_rhs.cu), K8 (d2_sum.cu), K9
+// (lap_rhs.cu) and K10 (curl_rhs.cu). For a float32 (nz, ny, nx) field and
+// a periodic scheme with z operators T_z (LHS) and B_z / dz**order (RHS),
+// each "family" writes one output, of one of three kinds:
 //
 //   advection:  out = my * Dy sy + mx * Dx sx
 //   z-RHS:      out = B_z bz + Dy (T_z sy) + Dx (T_z sx)
+//   weighted:   out = wy Dy (Z sy) + wb B_z bz + wx Dx (Z sx)
 //
 // where Dy and Dx are the family's compact scheme along y and x (the d1 or
-// the d2 of the launch). Since the xy operators do not depend on z,
-// T_z (Dx s + Dy s) = Dx (T_z s) + Dy (T_z s), so solving T_z x = out along
-// z (K4, or K2's solve_only mode) turns a z-RHS into Dx sx + Dy sy plus the
-// z derivative of bz without ever storing the xy derivatives:
+// the d2 of the launch), wy, wx, wb are constants (0 drops a term) and Z is
+// T_z (`tz` set; then wb != 0) or the identity (no z work at all). Since the
+// xy operators do not depend on z, T_z (Dx s + Dy s) = Dx (T_z s) + Dy
+// (T_z s), so solving T_z x = out along z (K4, or K2's solve_only mode)
+// turns a z-RHS into Dx sx + Dy sy plus the z derivative of bz without ever
+// storing the xy derivatives:
 //
 //   K3  axy = ux Dx f + uy Dy f;   r = B_z f + D2x h + D2y h,  h = T_z f
 //   K5  K3's two families for each of u0, u1, u2, advected by u0 and u1
 //   K6  r = B_z uz + D1x (T_z ux) + D1y (T_z uy)               (divergence)
+//   K9  r = B_z f + D2x h + D2y h                     (periodic Laplacian)
+//   K8  s = D2x f + D2y f                 (weighted, no z: the xy Laplacian)
+//   K10 wz = D1x uy - D1y ux;  rA = T_z (D1y uz) - B_z uy;
+//       rB = B_z ux - T_z (D1x uz)                    (weighted: the curl)
+//
+// A launch is either of the first two kinds (`weighted` = 0) or weighted
+// throughout; the weighted kind has kernels of its own, so K3, K5 and K6
+// compile to the same code as before it existed.
 //
 // A 256^2 plane (256 KB) does not fit one block's 227 KB of shared memory,
 // so a launch is two kernels on one stream:
@@ -34,7 +45,8 @@
 //
 // Families (x: pairs of them) sit on the grid's y axis, so the branch on a
 // family's kind is uniform in a block, and each kind's body is compiled
-// apart.
+// apart. A weighted family with wy = 0 runs no y solve (its y phase writes
+// wb B_z bz), and one with wx = 0 has no x blocks.
 //
 // Bound on Hopper: by its work, bytes. Each output is written once and each
 // distinct input read once at the least; this form also moves the y
@@ -77,7 +89,9 @@ struct XYFamily {
   const float* bz;  // z-RHS: the field under B_z (unused by advection)
   float* out;       // never an input of any family
   int d2;           // 1: the launch's second scheme (the d2), 0: its first
-  int rhs;          // 1: a z-RHS family, 0: an advection family
+  int rhs;          // 1: a z-RHS family, 0: an advection family (not weighted)
+  float wy, wx, wb; // weighted: the constants of Dy, Dx and B_z (0: no term)
+  int tz;           // weighted: 1 applies T_z to sy and sx and adds wb B_z bz
 };
 
 struct XYArgs {
@@ -89,6 +103,9 @@ struct XYArgs {
   int nfam;
   int paired;  // 1: families 2g and 2g + 1 are an advection and a z-RHS family
                // over the same sx; 0: every family is a z-RHS family
+  int weighted;                  // 1: every family is weighted (paired = 0)
+  int xfam[XY_MAX_FAMILIES];     // weighted: the families with an x term
+  int nxfam;                     //   (set by xy_launch)
 };
 
 __device__ __forceinline__ long long wrap_plane(long long p, int d, int nz) {
@@ -238,6 +255,104 @@ __global__ void xy_x_kernel(const __grid_constant__ XYArgs a, int lines_per_bloc
   }
 }
 
+// A weighted family's column of the y phase: out = wy Dy (Z sy) + wb B_z bz,
+// Z = T_z with TZ, else the identity (and no B_z term).
+template <bool TZ>
+__device__ __forceinline__ void xyw_y_column(const XYArgs& a, const XYFamily& F, long long col) {
+  const Coef& c = a.cy[F.d2];
+  const int ny = c.n;
+  const long long nx = a.cx[0].n;
+  const long long plane = ny * nx;
+  const long long p = col / nx;
+  const long long base = p * plane + (col - p * nx);
+  if constexpr (TZ) {
+    if (F.wy == 0.f) {  // no y term: out = wb B_z bz
+      const BzRow bz(a.zt, p, plane);
+      for (int i = 0; i < ny; ++i) {
+        const long long e = base + i * nx;
+        F.out[e] = F.wb * bz.at(F.bz, e);
+      }
+      return;
+    }
+  }
+  // row m of the column (wrapped on periodic lines), -1 past a wall
+  auto row = [&](int m) -> long long {
+    if (m < ny) return base + m * nx;
+    return c.periodic ? base + (m % ny) * nx : -1;
+  };
+  if constexpr (TZ) {
+    const TzRow tz(a.zt, p, plane);
+    const BzRow bz(a.zt, p, plane);
+    auto src = [&](int m) {
+      const long long e = row(m);
+      return e < 0 ? 0.f : tz.at(F.sy, e);
+    };
+    solve_line(c, a.taby[F.d2], src, F.out + base, nx, [&](int i, float v) {
+      const long long e = base + i * nx;
+      F.out[e] = F.wy * v + F.wb * bz.at(F.bz, e);
+    });
+  } else {
+    auto src = [&](int m) {
+      const long long e = row(m);
+      return e < 0 ? 0.f : __ldg(F.sy + e);
+    };
+    solve_line(c, a.taby[F.d2], src, F.out + base, nx, [&](int i, float v) {
+      F.out[base + i * nx] = F.wy * v;
+    });
+  }
+}
+
+__global__ void __launch_bounds__(XY_Y_THREADS, 8) xyw_y_kernel(const __grid_constant__ XYArgs a) {
+  const XYFamily& F = a.fam[blockIdx.y];
+  const long long col = (long long)blockIdx.x * XY_Y_THREADS + threadIdx.x;
+  if (col >= a.zt.nz * a.cx[0].n) return;
+  if (F.tz) {
+    xyw_y_column<true>(a, F, col);
+  } else {
+    xyw_y_column<false>(a, F, col);
+  }
+}
+
+// The weighted x phase: a block stages consecutive x-lines of Z sx for one
+// family with an x term, warp 0 solves them in place, and the block adds wx
+// times them into the family's output.
+__global__ void xyw_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
+  extern __shared__ float tile[];
+  const XYFamily& F = a.fam[a.xfam[blockIdx.y]];
+  const int n = a.cx[0].n;
+  const int ld = cfd_line_ld(n);
+  const long long lines = (long long)a.zt.nz * a.cy[0].n;
+  const long long plane = (long long)a.cy[0].n * n;
+  const long long line0 = (long long)blockIdx.x * lines_per_block;
+  const long long rest = lines - line0;
+  const int nl = rest < lines_per_block ? (int)rest : lines_per_block;
+  const int count = nl * n;
+  const long long e_base = line0 * n;
+
+  float* const tiles[1] = {tile};
+  if (F.tz) {
+    stage_lines(tiles, count, n, [&](int e, float* v) {
+      const long long g = e_base + e;
+      v[0] = TzRow(a.zt, g / plane, plane).at(F.sx, g);
+    });
+  } else {
+    stage_lines(tiles, count, n, [&](int e, float* v) { v[0] = __ldg(F.sx + e_base + e); });
+  }
+  __syncthreads();
+
+  if (threadIdx.x < nl) {
+    float* line = tile + threadIdx.x * ld;
+    wrap_line(line, n);
+    solve_line(a.cx[F.d2], a.tabx[F.d2], [&](int m) { return line[m]; }, line, 1);
+  }
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    const int l = e / n;
+    F.out[e_base + e] += F.wx * tile[l * ld + (e - l * n)];
+  }
+}
+
 // The launch's tables: scheme 0 along y and x (c0y, c0x with their per-point
 // tables), scheme 1 likewise (may repeat scheme 0), and the z tables of the
 // scheme whose T_z and B_z the families use.
@@ -258,17 +373,50 @@ __host__ inline XYArgs xy_args(const float* tab0y, const float* tab1y, const flo
   return a;
 }
 
+// The weighted kind's two phases on `s`; `a` is checked by xy_launch.
+__host__ inline int xyw_launch(XYArgs a, cudaStream_t s) {
+  const int ny = a.cy[0].n, nx = a.cx[0].n;
+  a.nxfam = 0;
+  for (int k = 0; k < a.nfam; ++k) {
+    if (a.fam[k].wx != 0.f) a.xfam[a.nxfam++] = k;
+  }
+  const long long cols = (long long)a.zt.nz * nx;
+  const dim3 ygrid((unsigned)((cols + XY_Y_THREADS - 1) / XY_Y_THREADS), a.nfam);
+  xyw_y_kernel<<<ygrid, XY_Y_THREADS, 0, s>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.nxfam == 0) return (int)err;
+  const size_t line_bytes = (size_t)cfd_line_ld(nx) * sizeof(float);
+  int per_block = XY_X_LINES;
+  while (per_block > 1 && per_block * line_bytes > XY_X_SMEM) per_block /= 2;
+  const long long lines = (long long)a.zt.nz * ny;
+  const dim3 xgrid((unsigned)((lines + per_block - 1) / per_block), a.nxfam);
+  xyw_x_kernel<<<xgrid, XY_X_THREADS, per_block * line_bytes, s>>>(a, per_block);
+  return (int)cudaGetLastError();
+}
+
 // Both phases of `a` on `stream`. Families, line lengths or a z width the
 // kernels do not take, and x lines past 48 KB, return cudaErrorInvalidValue.
 __host__ inline int xy_launch(const XYArgs& a, void* stream) {
   const int ny = a.cy[0].n, nx = a.cx[0].n;
   bool ok = a.nfam >= 1 && a.nfam <= XY_MAX_FAMILIES && a.cy[1].n == ny && a.cx[1].n == nx &&
-            a.zt.W >= 0 && a.zt.W <= CFD_MAX_K && a.zt.nz >= 1 && (!a.paired || a.nfam % 2 == 0);
+            a.zt.W >= 0 && a.zt.W <= CFD_MAX_K && a.zt.nz >= 1 && (!a.paired || a.nfam % 2 == 0) &&
+            !(a.paired && a.weighted);
   for (int k = 0; ok && k < a.nfam; ++k) {
+    const XYFamily& F = a.fam[k];
+    if (a.weighted) {
+      // every output point is written by the y phase: a y term or B_z
+      ok = (F.wy != 0.f || F.tz) && (F.wy == 0.f || F.sy) && (F.wx == 0.f || F.sx) &&
+           (!F.tz || (F.bz && F.wb != 0.f && a.zt.bt && a.zt.tt));
+      continue;
+    }
     const bool rhs = !a.paired || k % 2 == 1;
-    ok = a.fam[k].rhs == (int)rhs && (!a.paired || rhs || a.fam[k].sx == a.fam[k + 1].sx);
+    ok = F.rhs == (int)rhs && (!a.paired || rhs || F.sx == a.fam[k + 1].sx);
   }
   if (!ok) return (int)cudaErrorInvalidValue;
+  if (a.weighted) {
+    if ((size_t)cfd_line_ld(nx) * sizeof(float) > XY_X_SMEM) return (int)cudaErrorInvalidValue;
+    return xyw_launch(a, (cudaStream_t)stream);
+  }
   const int tiles = a.paired ? 2 : 1;
   const size_t line_bytes = (size_t)cfd_line_ld(nx) * sizeof(float);
   if (tiles * line_bytes > XY_X_SMEM) return (int)cudaErrorInvalidValue;

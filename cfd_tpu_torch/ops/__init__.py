@@ -1,9 +1,12 @@
 """Single-device ops: factor tables, the dense plain path, the CUDA kernels'
-wrappers (``lane``: K1, ``strided``: K2, ``adv_lap``: K3 and K5,
-``megastep``: K4, ``vec``: K6, ``pair``: K1 + K2 epilogues), the derivative
-API, the fused RK3 substeps and the spectral Poisson solve."""
+wrappers (``lane``: K1, ``strided``: K2, ``adv_lap``: K3, K5 and K9,
+``megastep``: K4, ``vec``: K6 and K10, ``pair``: K7, K8 and K1 + K2
+epilogues), the derivative API with filters and the vector calculus, the
+fused RK3 substeps, the spectral Poisson solve and the spectral
+diagnostics."""
 
 from .derivatives import (
+    curl,
     d2fdx2,
     d2fdy2,
     d2fdz2,
@@ -13,12 +16,14 @@ from .derivatives import (
     dfdy,
     dfdz,
     divergence,
+    filter_field,
     gradient,
     laplacian,
     resolve_method,
 )
 from .fused_step import make_fused_substep, make_fused_substep_vec
 from .poisson import laplacian_eigenvalues, project, solve_poisson, spectral_multipliers
+from .spectra import dissipation, energy_spectrum, enstrophy, scalar_spectrum, spectrum_shells
 
 __all__ = [
     "dense_operator",
@@ -29,8 +34,10 @@ __all__ = [
     "d2fdx2",
     "d2fdy2",
     "d2fdz2",
+    "filter_field",
     "gradient",
     "divergence",
+    "curl",
     "laplacian",
     "make_fused_substep",
     "make_fused_substep_vec",
@@ -39,4 +46,9 @@ __all__ = [
     "project",
     "spectral_multipliers",
     "laplacian_eigenvalues",
+    "spectrum_shells",
+    "scalar_spectrum",
+    "energy_spectrum",
+    "enstrophy",
+    "dissipation",
 ]

@@ -38,6 +38,7 @@ __all__ = [
     "check_order",
     "kernel_tables",
     "launch_tables",
+    "xy_planes_fit",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -45,7 +46,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu",
-    "adv_lap3.cu", "div_rhs.cu",
+    "adv_lap3.cu", "div_rhs.cu", "pair.cu", "d2_sum.cu", "lap_rhs.cu", "curl_rhs.cu",
 )
 HEADERS = ("compact_common.cuh", "xy_phase.cuh")
 NVCC_FLAGS = (
@@ -54,6 +55,8 @@ NVCC_FLAGS = (
 )
 
 MAX_K, MAX_ROWS, MAX_TAPS = 3, 3, 8
+AHEAD = 8  # CFD_AHEAD: the rows a line's read-ahead holds (compact_common.cuh)
+X_BLOCK_BYTES = 48 * 1024  # what an x block of K7-K10 stages (pair.cu, xy_phase.cuh)
 
 
 class Coef(ctypes.Structure):
@@ -148,6 +151,14 @@ def library() -> ctypes.CDLL:
     lib.cfd_adv_lap3.restype = i32
     lib.cfd_div_rhs.argtypes = [p] * 8 + [coef] * 2 + [i32, i32, p]
     lib.cfd_div_rhs.restype = i32
+    lib.cfd_gradient_pair.argtypes = [p] * 5 + [coef] * 2 + [i64, p]
+    lib.cfd_gradient_pair.restype = i32
+    lib.cfd_d2_sum.argtypes = [p] * 4 + [coef] * 2 + [i64, p]
+    lib.cfd_d2_sum.restype = i32
+    lib.cfd_lap_rhs.argtypes = [p] * 6 + [coef] * 2 + [i32, i32, p]
+    lib.cfd_lap_rhs.restype = i32
+    lib.cfd_curl_rhs.argtypes = [p] * 10 + [coef] * 2 + [i32, i32, p]
+    lib.cfd_curl_rhs.restype = i32
     f32 = ctypes.c_float
     lib.cfd_rk3_mega.argtypes = [p] * 9 + [coef, coef, f32, f32, f32, f32, i32, i64, p]
     lib.cfd_rk3_mega.restype = i32
@@ -161,14 +172,23 @@ def check(err: int, kernel: str) -> None:
 
 
 def check_order(scheme: CompactScheme) -> None:
-    """Raise unless ``scheme`` is a first or second derivative: the kernels'
-    tables serve filters too, but the port has not taken them up yet."""
-    if scheme.derivative_order not in (1, 2):
+    """Raise unless ``scheme`` is a first or second derivative or a filter
+    (``derivative_order`` 0), the three the kernels' tables serve."""
+    if scheme.derivative_order not in (0, 1, 2):
         raise ValueError(
             f"scheme {scheme.name!r} has derivative_order="
             f"{scheme.derivative_order}; the port takes first and second "
-            "derivatives (filters are not ported yet)"
+            "derivatives and filters"
         )
+
+
+def xy_planes_fit(scheme: CompactScheme, ny: int, nx: int) -> bool:
+    """Whether K7-K10 take (ny, nx) planes for ``scheme``: both lines at
+    least the scheme's ``min_points``, and one x-line of ``nx`` floats, with
+    its wrap slots (``cfd_line_ld``), within the shared memory an x block
+    stages."""
+    return (min(ny, nx) >= scheme.min_points()
+            and 4 * ((nx + AHEAD + 1) | 1) <= X_BLOCK_BYTES)
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor) -> None:
@@ -196,6 +216,10 @@ def kernel_tables(scheme: CompactScheme, n: int):
     kernels apply the rank-1 term during the backward sweep. A second
     derivative's closure rows are given over second differences
     (``diff2``, ``second_differences``; see ``csrc/compact_common.cuh``).
+    A filter's rows do not annihilate constants: ``center`` carries the
+    interior row's constant part, c0 + 2 sum(w) = 1 + 2 alpha, and
+    ``left_sum``/``right_sum`` its identity closure rows' 1, so that a row
+    formed from differences to f[i] returns f[i] exactly on those rows.
     """
     if scheme.stencil_width > MAX_K or scheme.n_closure > MAX_ROWS:
         raise ValueError(f"scheme {scheme.name} is wider than the kernels take")
@@ -233,7 +257,8 @@ def kernel_tables(scheme: CompactScheme, n: int):
         for j, row in enumerate(rows):
             st[j, : len(row.rhs_stencil)] = row.rhs_stencil
         sums = st.sum(axis=1)
-        # a derivative row annihilates constants: keep its sum exactly 0
+        # a derivative row annihilates constants: keep its sum exactly 0 (a
+        # filter's identity row sums to 1)
         sums[np.abs(sums) < 1e-12] = 0.0
         if diff2:
             st, sums = np.stack([second_differences(r) for r in st]), np.zeros(MAX_ROWS)

@@ -1,9 +1,10 @@
 """The advection term in x and y and the Laplacian's z right-hand side from
-one call: kernels K3 (one field) and K5 (a velocity's three components).
+one call: kernels K3 (one field) and K5 (a velocity's three components); and
+the Laplacian's z right-hand side alone: kernel K9.
 
-The port of the merged heads of ``cfd_tpu/ops/pallas_lap.py``
-(``adv_lap_rhs`` and ``adv_lap_rhs3``, their Pallas kernels
-``_adv_lap_kernel`` and ``_adv_lap3_kernel``, and the z tables
+The port of ``cfd_tpu/ops/pallas_lap.py`` (``adv_lap_rhs``,
+``adv_lap_rhs3`` and ``lap_rhs``, their Pallas kernels ``_adv_lap_kernel``,
+``_adv_lap3_kernel`` and ``_lap_rhs_kernel``, and the z tables
 ``_z_tables``). For a (nz, ny, nx) field f, a d1 scheme D1 and a periodic
 d2 scheme D2 with z operators T_z (LHS) and B_z (RHS):
 
@@ -13,14 +14,21 @@ d2 scheme D2 with z operators T_z (LHS) and B_z (RHS):
 Solving ``T_z lap = r`` along z gives the Laplacian, since the xy operator
 commutes with T_z (``ops/megastep.py`` does that solve). ``adv_lap_rhs3``
 computes both for each component u_i of a velocity, advected by u0 and u1,
-in one call. On CUDA float32 tensors ``adv_lap_rhs``
-launches ``adv_lap`` (``csrc/adv_lap.cu``) and ``adv_lap_rhs3`` launches
-``adv_lap3`` (``csrc/adv_lap3.cu``); on CPU tensors they return
-``adv_lap_rhs_ref`` and ``adv_lap_rhs3_ref``, the plain PyTorch versions,
-which apply the dense operators.
+in one call. ``lap_rhs`` computes r alone; ``derivatives.laplacian`` on a
+periodic d2 scheme is ``strided.leading_solve(lap_rhs(f))``, and
+``lap_rhs_supported`` says where ``"auto"`` takes that route, as its JAX
+namesake does on the TPU (a periodic d2 scheme, float32, nz of at least the
+z stencil; the TPU's VMEM slab condition becomes the card's
+``_native.xy_planes_fit``). On CUDA float32 tensors ``adv_lap_rhs`` launches
+``adv_lap`` (``csrc/adv_lap.cu``), ``adv_lap_rhs3`` launches ``adv_lap3``
+(``csrc/adv_lap3.cu``) and ``lap_rhs`` launches ``lap_rhs``
+(``csrc/lap_rhs.cu``); on CPU tensors they return ``adv_lap_rhs_ref``,
+``adv_lap_rhs3_ref`` and ``lap_rhs_ref``, the plain PyTorch versions, which
+apply the dense operators.
 
-``LAUNCHES`` and ``LAUNCHES3`` count calls that launched K3 and K5 (each
-kernel's two phases count once); nothing but the launch adds to them.
+``LAUNCHES``, ``LAUNCHES3`` and ``LAP_LAUNCHES`` count calls that launched
+K3, K5 and K9 (each kernel's two phases count once); nothing but the launch
+adds to them.
 """
 
 from __future__ import annotations
@@ -44,10 +52,15 @@ __all__ = [
     "adv_lap_rhs_ref",
     "adv_lap_rhs3",
     "adv_lap_rhs3_ref",
+    "LAP_LAUNCHES",
+    "lap_rhs_supported",
+    "lap_rhs",
+    "lap_rhs_ref",
 ]
 
 LAUNCHES = 0
 LAUNCHES3 = 0
+LAP_LAUNCHES = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -191,3 +204,59 @@ def adv_lap_rhs3(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
     _native.check(err, "adv_lap3")
     LAUNCHES3 += 1
     return tuple(axy), tuple(r)
+
+
+def lap_rhs_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) -> bool:
+    """Whether K9 takes (nz, ny, nx) fields of ``dtype`` for ``scheme``."""
+    return (
+        scheme.derivative_order == 2
+        and scheme.periodic
+        and dtype == torch.float32
+        and nz >= max(scheme.min_points(), 2 * scheme.stencil_width + 1)
+        and _native.xy_planes_fit(scheme, ny, nx)
+    )
+
+
+def _check_lap(f, scheme: CompactScheme) -> None:
+    if scheme.derivative_order != 2 or not scheme.periodic:
+        raise ValueError(f"lap_rhs: {scheme.name!r} is not a periodic d2 scheme")
+    if f.ndim != 3:
+        raise ValueError(f"lap_rhs needs a 3-D (nz, ny, nx) field, got {tuple(f.shape)}")
+
+
+def lap_rhs_ref(f, dz, dy, dx, scheme: CompactScheme):
+    """The plain PyTorch version, from the dense operators:
+    ``B_z f/dz**2 + T_z(D2x f + D2y f)``."""
+    _check_lap(f, scheme)
+    s = dense_derivative(f, dx, scheme, -1) + dense_derivative(f, dy, scheme, -2)
+    return dense_apply("rhs", f, scheme, 0, float(dz) ** 2) + dense_apply("lhs", s, scheme, 0)
+
+
+def lap_rhs(f, dz, dy, dx, scheme: CompactScheme):
+    """``B_z f/dz**2 + T_z(D2x f + D2y f)`` of a (nz, ny, nx) field.
+
+    Solving it along z with the scheme's LHS (``strided.leading_solve``)
+    gives the compact-d2 Laplacian. ``scheme`` is a periodic d2 scheme. CUDA
+    tensors must be float32 and contiguous and run the kernel; a launch
+    failure raises. CPU tensors take ``lap_rhs_ref``.
+    """
+    global LAP_LAUNCHES
+    _check_lap(f, scheme)
+    if f.device.type == "cpu":
+        return lap_rhs_ref(f, dz, dy, dx, scheme)
+    _native.check_operands("lap_rhs", f)
+    nz, ny, nx = f.shape
+    dev = f.device
+    bt, tt = device_z_tables(scheme, nz, float(dz), dev)
+    cy, ty = _native.launch_tables(scheme, ny, float(dy), dev)
+    cx, tx = _native.launch_tables(scheme, nx, float(dx), dev)
+    r = torch.empty_like(f)
+    with torch.cuda.device(dev):
+        err = _native.library().cfd_lap_rhs(
+            f.data_ptr(), r.data_ptr(), ty.data_ptr(), tx.data_ptr(), bt.data_ptr(),
+            tt.data_ptr(), ctypes.byref(cy), ctypes.byref(cx), nz, scheme.stencil_width,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _native.check(err, "lap_rhs")
+    LAP_LAUNCHES += 1
+    return r

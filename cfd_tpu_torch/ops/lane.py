@@ -3,15 +3,17 @@
 The port of ``cfd_tpu/ops/pallas_lane.py``. On a CUDA float32 tensor
 ``lane_derivative`` launches ``compact_lane`` (``csrc/compact_lane.cu``),
 which replaces both of that module's derivative kernels: the fold form
-``_lane_fold_kernel`` (first and second derivatives) and the roll form
-``_lane_kernel`` (first). The scheme's tables select the derivative;
-filters (``derivative_order=0``) are not ported yet and raise. On a CPU
-tensor it returns ``lane_derivative_ref``, the plain PyTorch version.
+``_lane_fold_kernel`` (first and second derivatives and filters) and the
+roll form ``_lane_kernel`` (first). The scheme's tables select the
+derivative, or the filter (``derivative_order=0``, ``schemes.get_filter``:
+no spacing scale). On a CPU tensor it returns ``lane_derivative_ref``, the
+plain PyTorch version.
 
 ``LAUNCHES`` counts the launches of ``lane_derivative``, so that a run can
-show that its path went through the kernel; nothing but the launch adds to
-it. ``launch`` is the bare launch, with the kernel's ``acc`` epilogue
-(``f' + acc``), for ``ops/pair.py``, which counts its own calls.
+show that its path went through the kernel, and ``MODE_LAUNCHES`` the same
+launches by mode (``"derivative"`` or ``"filter"``); nothing but the launch
+adds to them. ``launch`` is the bare launch, with the kernel's ``acc``
+epilogue (``f' + acc``), for ``ops/pair.py``, which counts its own calls.
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ from ..schemes import CompactScheme
 from . import _native
 from .dense import dense_derivative
 
-__all__ = ["LAUNCHES", "launch", "lane_derivative", "lane_derivative_ref"]
+__all__ = ["LAUNCHES", "MODE_LAUNCHES", "launch", "lane_derivative", "lane_derivative_ref"]
 
 LAUNCHES = 0
+MODE_LAUNCHES = {"derivative": 0, "filter": 0}
 
 
 def lane_derivative_ref(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
@@ -35,7 +38,8 @@ def lane_derivative_ref(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Ten
 
 
 def lane_derivative(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
-    """Compact first or second derivative of ``f`` along its last axis.
+    """Compact first or second derivative, or filter, of ``f`` along its
+    last axis.
 
     CUDA tensors must be float32 and contiguous and run the kernel; a line
     too short for the scheme, or too long for one block's shared memory,
@@ -47,6 +51,7 @@ def lane_derivative(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
         return lane_derivative_ref(f, dx, scheme)
     out = launch(f, dx, scheme)
     LAUNCHES += 1
+    MODE_LAUNCHES["filter" if scheme.derivative_order == 0 else "derivative"] += 1
     return out
 
 

@@ -8,8 +8,8 @@ The port of ``cfd_tpu/ops/pallas_sublane.py`` and
 On a CUDA float32 tensor ``strided_derivative`` launches
 ``compact_strided`` (``csrc/compact_strided.cu``), which replaces
 ``_sublane_kernel`` (first derivatives), ``_sublane_fold_kernel`` (second
-derivatives) and ``_leading_kernel`` in its plain mode and its epilogue
-modes:
+derivatives and filters) and ``_leading_kernel`` in its plain mode (every
+scheme, filters with no spacing scale) and its epilogue modes:
 
 * ``acc``: ``f' + acc`` (with a negative spacing, the projection's
   ``uz - dphi/dz``);
@@ -17,13 +17,13 @@ modes:
 * ``solve_only``: ``leading_solve`` solves ``T x = r`` for a right-hand side
   that is already formed (the second half of the fused divergence).
 
-Filters (``derivative_order=0``) are not ported yet and raise. On a CPU
-tensor each function returns its plain PyTorch version (``*_ref``).
+On a CPU tensor each function returns its plain PyTorch version
+(``*_ref``).
 
 ``LAUNCHES`` counts kernel launches, whatever the mode, and
-``MODE_LAUNCHES`` the same launches by mode; nothing but a launch adds to
-them. ``launch`` is the bare launch, for ``ops/pair.py``, which counts its
-own calls.
+``MODE_LAUNCHES`` the same launches by mode (a filter's plain-mode launch
+is ``"filter"``); nothing but a launch adds to them. ``launch`` is the bare
+launch, for ``ops/pair.py``, which counts its own calls.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ __all__ = [
 ]
 
 LAUNCHES = 0
-MODE_LAUNCHES = {"derivative": 0, "acc": 0, "mul": 0, "solve": 0}
+MODE_LAUNCHES = {"derivative": 0, "filter": 0, "acc": 0, "mul": 0, "solve": 0}
 
 
 def strided_derivative_ref(
@@ -65,8 +65,9 @@ def strided_derivative_ref(
 def strided_derivative(
     f: torch.Tensor, dx, scheme: CompactScheme, axis: int, *, acc=None, mul=None
 ) -> torch.Tensor:
-    """Compact first or second derivative of ``f`` along ``axis``, any axis
-    but the last, as ``mul * f' + acc`` where given (each of f's shape).
+    """Compact first or second derivative, or filter, of ``f`` along
+    ``axis``, any axis but the last, as ``mul * f' + acc`` where given (each
+    of f's shape).
 
     CUDA tensors must be float32 and contiguous and run the kernel, with
     ``mul`` and ``acc`` applied by its final store; a line too short for the
@@ -84,7 +85,8 @@ def strided_derivative(
     if f.device.type == "cpu":
         return strided_derivative_ref(f, dx, scheme, axis, acc=acc, mul=mul)
     out = launch(f, dx, scheme, axis, acc=acc, mul=mul)
-    mode = "mul" if mul is not None else ("acc" if acc is not None else "derivative")
+    plain = "filter" if scheme.derivative_order == 0 else "derivative"
+    mode = "mul" if mul is not None else ("acc" if acc is not None else plain)
     LAUNCHES += 1
     MODE_LAUNCHES[mode] += 1
     return out

@@ -11,7 +11,8 @@ script exits non-zero without printing the final line:
 1. device   — a CUDA card must be present; its name and power limit as
               nvidia-smi reports them; TF32 off for every float32 product.
 2. build    — nvcc builds kernels K1 (compact_lane), K2 (compact_strided),
-              K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3) and K6 (div_rhs)
+              K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3), K6 (div_rhs), K7
+              (gradient_pair), K8 (d2_sum), K9 (lap_rhs) and K10 (curl_rhs)
               for sm_90a from cfd_tpu_torch/csrc/, one nvcc per source, in
               parallel.
 3. kernels  — each kernel against its plain PyTorch version (dense
@@ -26,13 +27,27 @@ script exits non-zero without printing the final line:
               schemes, K5 and K6 for the two periodic pairs (K5 also
               against three K3 launches) and pair_subtract (K1 + K2 with
               acc) for the two periodic d1 schemes, at 256^3 and at
-              (40, 96, 200). Gate: max|err| <= 1e-5 * max|ref|, 5e-5 for
-              second derivatives with closure rows.
+              (40, 96, 200); K1 and K2 in filter mode for the four filters
+              get_filter(4|6, 0.45, periodic=False|True) as K1/K2 above; K7
+              for the four d1 schemes, K8 for the four d2 schemes, K9 for
+              the two periodic d2 schemes, K10 for the two periodic d1
+              schemes and K2's acc mode for the two non-periodic d2
+              schemes, at 256^3 and at (40, 96, 200). Gate: max|err| <=
+              1e-5 * max|ref|, 5e-5 for second derivatives with closure
+              rows.
 4. accuracy — dfdx of sin(x) against cos(x) (5e-4) and d2fdx2 of sin(x)
-              against -sin(x) (2e-3), at 256^3; the float32 Poisson solve
+              against -sin(x) (2e-3), at 256^3; laplacian of (sin x + sin
+              y + sin z) / 3 against minus itself on the periodic (K9) and
+              the non-periodic (K8) route (6e-3: three d2 operators at
+              2e-3); curl of the Taylor–Green
+              field against its analytic curl (5e-4); filter_field of sin(m
+              x) + sin(m y) + sin(m z) against the filter's transfer
+              function times it (1e-5 of max|f|); the float32 Poisson solve
               (cuFFT) against a host float64 FFT (1e-5 of max|p|,
-              benchmarks/diag_ns.py's gate) and max|div(project(u))| /
-              max|u| (1e-4, the same script's), at 256^3.
+              benchmarks/diag_ns.py's gate), max|div(project(u))| / max|u|
+              (1e-4, the same script's) and 2 nu enstrophy against
+              dissipation on the projected field (1e-4, tests/test_spectra.py's
+              tolerance), at 256^3.
 5. slices   — 5 RK3 steps at 256^3 float32 through method="auto", each
               against the same steps on the plain float64 path (gates 1e-5
               * max|f| and 1e-3 * max|increment|), with the kernels' launch
@@ -40,15 +55,31 @@ script exits non-zero without printing the final line:
               (first derivatives, K1 + K2), slice 2 fused
               (SCHEME4_PERIODIC with the compact-d2 Laplacian: K3 + K4) at
               nu = 1e-3 and at nu = 0.05 (where the diffusion moves f well
-              past the gate), slice 2 non-periodic (SCHEME4 with the d2
-              Laplacian: no fused substep, K1 + K2); Burgers (K5 + K4) at
-              nu = 1e-2; Navier–Stokes (K5 + K4, the projection's K6, K2
-              solve, pair_subtract, K2 acc) at nu = 1e-3 and at nu = 0.05.
+              past the gate), slice 2 generic (that configuration without
+              its fused substep: K7 + K2 for the gradient, K9 + K2's solve
+              for the Laplacian), slice 2 non-periodic (SCHEME4 with the d2
+              Laplacian: no fused substep; K7 + K2, K8 + K2 acc); Burgers
+              (K5 + K4) at nu = 1e-2 and on its generic route (K7 + K2, K9
+              + K2's solve); Navier–Stokes (K5 + K4, the projection's K6,
+              K2 solve, pair_subtract, K2 acc) at nu = 1e-3 and at nu =
+              0.05; the vector-calculus slice: gradient (SCHEME4_PERIODIC:
+              K7 + K2; SCHEME4: K7 + K2), curl (K10 + two K2 solves),
+              laplacian (K9 + K2's solve; SCHEME4_D2: K8 + K2 acc) and
+              filter_field (get_filter(6, 0.45), non-periodic and
+              periodic: K1 + two K2 in filter mode) on random inputs,
+              each against the plain float64 path at the kernels' gates;
+              the diagnostics slice: 5 Navier–Stokes steps, then
+              enstrophy (K10 + two K2 solves), dissipation (K7 + K2 per
+              component) and energy_spectrum (cuFFT), gated against the
+              float64 plain path (1e-5 of the scalars and of max E(k)).
 6. times    — CUDA-event medians at 256^3, in turns: each kernel against
               its plain float32 version (and a single PyTorch call where
               one computes the same function), K5 against three K3
-              launches, a copy floor, the Poisson round trip, one
-              projection, and the step of each configuration.
+              launches, K7 against K1 + K2, K8 against two d2 calls and a
+              sum, the Laplacian's two routes and the fused curl against
+              the single derivatives and sums they replace, a copy floor,
+              the Poisson round trip, one projection, the diagnostics, and
+              the step of each configuration.
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -77,7 +108,9 @@ from cfd_tpu_torch.models import (
     sine_field,
     taylor_green,
 )
-from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, megastep, pair, poisson, strided, vec
+from cfd_tpu_torch.ops import (
+    _native, adv_lap, dense, lane, megastep, pair, poisson, spectra, strided, vec,
+)
 from cfd_tpu_torch.utils import cuda_time_ms
 
 N = 256
@@ -101,8 +134,14 @@ SIN_GATE = 5e-4  # absolute, d/dx sin = cos at 256^3
 # rounding is <= 3e-8, so input rounding moves the result by < 3e-4; the
 # gate leaves room for the kernel's own rounding (truncation is ~1e-8).
 SIN2_GATE = 2e-3
+# Absolute, the Laplacian of (sin x + sin y + sin z) / 3 = minus itself at
+# 256^3: three d2 operators, each at SIN2_GATE (K9's route also rounds h =
+# T_z f before D2x and D2y). Its line prints the plain float32 path's error
+# on the same input beside the kernels'.
+LAP_GATE = 3 * SIN2_GATE
 D1_SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME6, ct.SCHEME6_PERIODIC]
 D2_SCHEMES = [ct.SCHEME4_D2, ct.SCHEME4_D2_PERIODIC, ct.SCHEME6_D2, ct.SCHEME6_D2_PERIODIC]
+FILTERS = [ct.get_filter(order, 0.45, periodic) for order in (4, 6) for periodic in (False, True)]
 FUSED_PAIRS = [
     (ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC),
     (ct.SCHEME6_PERIODIC, ct.SCHEME6_D2_PERIODIC),
@@ -131,6 +170,10 @@ NU_BURGERS = 1e-2
 NU_NS = 1e-3
 POISSON_GATE = 1e-5  # benchmarks/diag_ns.py:88, against a host float64 FFT
 DIV_GATE = 1e-4  # max|div u| / max|u| after a projection, diag_ns.py:59
+# 2 nu enstrophy against dissipation on a solenoidal field: equal for the
+# commuting circulant operators up to rounding and div u (tests/test_spectra.py
+# holds them at rtol 1e-4, truncation included)
+IDENTITY_GATE = 1e-4
 FIELD_SEED = 20261017  # the smooth perturbation of the Navier–Stokes probe
 RK3_MID = dict(a=-5.0 / 9.0, b=15.0 / 16.0, dt=DT, nu=NU)  # the second substep's
 # K4 with dt * nu = 1: the Laplacian's share of q' and f' is O(1), so a
@@ -187,26 +230,57 @@ KERNELS = {
         "source": "cfd_tpu_torch/csrc/div_rhs.cu",
         "replaces": "cfd_tpu/ops/pallas_vec.py:197 (_div_kernel)",
     },
+    "compact_lane_filter": {
+        "source": "cfd_tpu_torch/csrc/compact_lane.cu",
+        "replaces": "cfd_tpu/ops/pallas_lane.py:351 (_lane_fold_kernel, filters)",
+    },
+    "compact_strided_filter": {
+        "source": "cfd_tpu_torch/csrc/compact_strided.cu",
+        "replaces": "cfd_tpu/ops/pallas_sublane.py:231 (_sublane_fold_kernel, filters); "
+        "cfd_tpu/ops/pallas_leading.py:157 (_leading_kernel, filters)",
+    },
+    "gradient_pair": {
+        "source": "cfd_tpu_torch/csrc/pair.cu",
+        "replaces": "cfd_tpu/ops/pallas_pair.py:162 (_pair_kernel)",
+    },
+    "d2_sum": {
+        "source": "cfd_tpu_torch/csrc/d2_sum.cu",
+        "replaces": "cfd_tpu/ops/pallas_pair.py:694 (_d2_sum_kernel)",
+    },
+    "lap_rhs": {
+        "source": "cfd_tpu_torch/csrc/lap_rhs.cu",
+        "replaces": "cfd_tpu/ops/pallas_lap.py:231 (_lap_rhs_kernel)",
+    },
+    "curl_rhs": {
+        "source": "cfd_tpu_torch/csrc/curl_rhs.cu",
+        "replaces": "cfd_tpu/ops/pallas_vec.py:429 (_curl_kernel)",
+    },
 }
 
 
 def launch_counts() -> dict:
-    """Every wrapper's launch count, by kernel (K2 by mode)."""
+    """Every wrapper's launch count, by kernel (K1 and K2 by mode)."""
     modes = strided.MODE_LAUNCHES
     return {
-        "compact_lane": lane.LAUNCHES, "compact_strided": modes["derivative"],
+        "compact_lane": lane.MODE_LAUNCHES["derivative"], "compact_strided": modes["derivative"],
         "adv_lap": adv_lap.LAUNCHES, "rk3_mega": megastep.LAUNCHES,
         "compact_strided_solve": modes["solve"], "compact_strided_acc": modes["acc"],
         "compact_strided_mul": modes["mul"], "pair_subtract": pair.LAUNCHES,
         "adv_lap3": adv_lap.LAUNCHES3, "div_rhs": vec.LAUNCHES,
+        "compact_lane_filter": lane.MODE_LAUNCHES["filter"],
+        "compact_strided_filter": modes["filter"], "gradient_pair": pair.GRADIENT_LAUNCHES,
+        "d2_sum": pair.D2_SUM_LAUNCHES, "lap_rhs": adv_lap.LAP_LAUNCHES,
+        "curl_rhs": vec.CURL_LAUNCHES,
     }
 
 
 def zero_launch_counts() -> None:
     lane.LAUNCHES = strided.LAUNCHES = adv_lap.LAUNCHES = adv_lap.LAUNCHES3 = 0
     megastep.LAUNCHES = vec.LAUNCHES = pair.LAUNCHES = 0
-    for mode in strided.MODE_LAUNCHES:
-        strided.MODE_LAUNCHES[mode] = 0
+    pair.GRADIENT_LAUNCHES = pair.D2_SUM_LAUNCHES = adv_lap.LAP_LAUNCHES = vec.CURL_LAUNCHES = 0
+    for modes in (lane.MODE_LAUNCHES, strided.MODE_LAUNCHES):
+        for mode in modes:
+            modes[mode] = 0
 
 
 def path(**launches) -> dict:
@@ -216,18 +290,22 @@ def path(**launches) -> dict:
 
 # Least bytes each kernel must move per point at the timed call (f32 inputs
 # read once, outputs written once: K5 3 reads and 6 writes, K6 3 and 1,
-# pair_subtract 3 and 2, the K2 modes 1 + one per mul/acc and 1), and the
-# operations it does per point, counted from its arithmetic (line RHS ~17,
-# forward sweep 4, backward 5; K6 two line solves, T_z and B_z; K5 three
-# K3s).
+# pair_subtract 3 and 2, the K2 modes 1 + one per mul/acc and 1, K7 1 and 2,
+# K8 and K9 1 and 1, K10 3 and 3), and the operations it does per point,
+# counted from its arithmetic (line RHS ~17, forward sweep 4, backward 5; K6
+# and K9 two line solves, T_z and B_z; K5 three K3s; K7 and K8 two line
+# solves; K10 four, two T_z and two B_z; a filter's line RHS ~21 with its
+# three offsets).
 BYTES_PER_POINT = {"compact_lane": 8, "compact_strided": 8, "adv_lap": 20, "rk3_mega": 28,
                    "compact_strided_solve": 8, "compact_strided_acc": 12,
                    "compact_strided_mul": 16, "pair_subtract": 20, "adv_lap3": 36,
-                   "div_rhs": 16}
+                   "div_rhs": 16, "compact_lane_filter": 8, "compact_strided_filter": 8,
+                   "gradient_pair": 12, "d2_sum": 8, "lap_rhs": 8, "curl_rhs": 24}
 FLOPS_PER_POINT = {"compact_lane": 26, "compact_strided": 26, "adv_lap": 127, "rk3_mega": 44,
                    "compact_strided_solve": 9, "compact_strided_acc": 27,
                    "compact_strided_mul": 28, "pair_subtract": 54, "adv_lap3": 381,
-                   "div_rhs": 64}
+                   "div_rhs": 64, "compact_lane_filter": 30, "compact_strided_filter": 30,
+                   "gradient_pair": 52, "d2_sum": 53, "lap_rhs": 64, "curl_rhs": 128}
 
 
 def emit(obj) -> None:
@@ -291,16 +369,19 @@ def _compare(stats, kernel, label, got, ref, failures, gate=GATE):
 
 
 def _derivative_cases(stats, failures, schemes, fields, g, dev):
+    """K1 and K2 (in filter mode for a filter) at 256^3 and on ragged shapes."""
     dx = 2 * math.pi / N
+    mode = lambda kernel, scheme: kernel + ("_filter" if scheme.derivative_order == 0 else "")
     for scheme in schemes:
         gate = _gate(scheme)
         for fname, f in fields.items():
             f64 = f.double()
-            _compare(stats, "compact_lane", f"x {scheme.name} {fname} {N}^3",
+            _compare(stats, mode("compact_lane", scheme), f"x {scheme.name} {fname} {N}^3",
                      lane.lane_derivative(f, dx, scheme),
                      lane.lane_derivative_ref(f64, dx, scheme), failures, gate)
             for axis, name in ((1, "y"), (0, "z")):
-                _compare(stats, "compact_strided", f"{name} {scheme.name} {fname} {N}^3",
+                _compare(stats, mode("compact_strided", scheme),
+                         f"{name} {scheme.name} {fname} {N}^3",
                          strided.strided_derivative(f, dx, scheme, axis),
                          strided.strided_derivative_ref(f64, dx, scheme, axis), failures, gate)
             del f64
@@ -320,7 +401,7 @@ def _derivative_cases(stats, failures, schemes, fields, g, dev):
             else:
                 got = strided.strided_derivative(f, 0.01, scheme, axis)
                 ref = strided.strided_derivative_ref(f.double(), 0.01, scheme, axis)
-            _compare(stats, kernel, label, got, ref, failures, _gate(scheme))
+            _compare(stats, mode(kernel, scheme), label, got, ref, failures, _gate(scheme))
 
 
 def _fused_cases(stats, failures, g, dev):
@@ -404,6 +485,43 @@ def _slice3_cases(stats, failures, g, dev):
                   "max_abs_gap": gap})
 
 
+def _slice4_cases(stats, failures, g, dev):
+    """K7-K10 and K2's acc on d2 closure rows, at 256^3 and (40, 96, 200),
+    for the schemes each route takes."""
+    d1_periodic = [s for s, _ in FUSED_PAIRS]
+    d2_periodic = [s for _, s in FUSED_PAIRS]
+    for shape in ((N, N, N), RAGGED):
+        dz, dy, dx = (2 * math.pi / n for n in shape)
+        f, a, m = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        f64, a64, m64 = f.double(), a.double(), m.double()
+        for scheme in D1_SCHEMES:
+            label = f"{scheme.name} {tuple(shape)}"
+            got = pair.gradient_pair(f, dy, dx, scheme)
+            ref = pair.gradient_pair_ref(f64, dy, dx, scheme)
+            for out, g_, r_ in zip(("x", "y"), got, ref):
+                _compare(stats, "gradient_pair", f"{out} {label}", g_, r_, failures)
+        for scheme in D2_SCHEMES:
+            label = f"{scheme.name} {tuple(shape)}"
+            _compare(stats, "d2_sum", label, pair.d2_pair_sum(f, dy, dx, scheme),
+                     pair.d2_pair_sum_ref(f64, dy, dx, scheme), failures, _gate(scheme))
+            if not scheme.periodic:  # the non-periodic Laplacian's z: K2 acc
+                _compare(stats, "compact_strided_acc", f"z d2 {label}",
+                         strided.strided_derivative(f, dz, scheme, 0, acc=a),
+                         strided.strided_derivative_ref(f64, dz, scheme, 0, acc=a64),
+                         failures, _gate(scheme))
+        for scheme in d2_periodic:
+            label = f"{scheme.name} {tuple(shape)}"
+            _compare(stats, "lap_rhs", label, adv_lap.lap_rhs(f, dz, dy, dx, scheme),
+                     adv_lap.lap_rhs_ref(f64, dz, dy, dx, scheme), failures)
+        for scheme in d1_periodic:
+            label = f"{scheme.name} {tuple(shape)}"
+            got = vec.curl_rhs(f, a, m, dz, dy, dx, scheme)
+            ref = vec.curl_rhs_ref(f64, a64, m64, dz, dy, dx, scheme)
+            for out, g_, r_ in zip(("wz", "rA", "rB"), got, ref):
+                _compare(stats, "curl_rhs", f"{out} {label}", g_, r_, failures)
+        del f64, a64, m64
+
+
 def phase_kernels(dev) -> dict:
     stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS}
     failures = []
@@ -417,6 +535,11 @@ def phase_kernels(dev) -> dict:
     _derivative_cases(stats, failures, D2_SCHEMES, fields, g, dev)
     _fused_cases(stats, failures, g, dev)
     _slice3_cases(stats, failures, g, dev)
+    # the new cases draw their inputs last, so that every earlier case sees
+    # the same inputs as at the parent commit, and a change to a shared
+    # source shows as a change of its errors
+    _derivative_cases(stats, failures, FILTERS, fields, g, dev)
+    _slice4_cases(stats, failures, g, dev)
     if failures:
         raise AssertionError("kernel vs plain over the gate: " + "; ".join(failures))
     return stats
@@ -427,17 +550,49 @@ def phase_accuracy(dev) -> None:
     c = coordinates(N, device=dev, dtype=torch.float64)
     f64, exact = sine_field(c, c, c)
     f = f64.float()  # built in float64, cast once: only input rounding enters
-    cases = [
-        ("dfdx sin(x) SCHEME4", ct.dfdx(f, dx, ct.SCHEME4), exact, SIN_GATE),
+    cases = [  # (case, got, exact, gate, the plain float32 path or None)
+        ("dfdx sin(x) SCHEME4", ct.dfdx(f, dx, ct.SCHEME4), exact, SIN_GATE, None),
         ("d2fdx2 sin(x) SCHEME4_D2_PERIODIC", ct.d2fdx2(f, dx, ct.SCHEME4_D2_PERIODIC),
-         -f64, SIN2_GATE),
+         -f64, SIN2_GATE, None),
     ]
-    for case, got, want, gate in cases:
+    # the Laplacian's two routes on a field of max 1
+    Z, Y, X = c[:, None, None], c[None, :, None], c[None, None, :]
+    s3 = ((torch.sin(X) + torch.sin(Y) + torch.sin(Z)) / 3).contiguous()
+    for scheme, route in ((ct.SCHEME4_D2_PERIODIC, "K9 + solve"), (ct.SCHEME4_D2, "K8 + acc")):
+        cases.append((f"laplacian (sin x + sin y + sin z) / 3 {scheme.name} ({route})",
+                      ct.laplacian(s3.float(), dx, scheme), -s3, LAP_GATE,
+                      ct.laplacian(s3.float(), dx, scheme, method="matmul")))
+    # the fused curl of the Taylor–Green field against its analytic curl
+    tg = tuple(v.float() for v in taylor_green(c, c, c))
+    exact = (torch.sin(X) * torch.cos(Y) * torch.cos(Z), torch.cos(X) * torch.sin(Y) * torch.cos(Z),
+             -2 * torch.cos(X) * torch.cos(Y) * torch.sin(Z))
+    for name, got, want in zip(("wx", "wy", "wz"), ct.curl(tg, dx, ct.SCHEME4_PERIODIC), exact):
+        cases.append((f"curl Taylor–Green {name} SCHEME4_PERIODIC (K10 + solves)", got, want,
+                      SIN_GATE, None))
+    for case, got, want, gate, plain in cases:
         err = (got.double() - want).abs().max().item()
-        emit({"phase": "accuracy", "case": f"{case} {N}^3 f32", "max_abs_err": err,
-              "gate": gate, "ok": err < gate})
+        line = {"phase": "accuracy", "case": f"{case} {N}^3 f32", "max_abs_err": err}
+        if plain is not None:
+            line["plain_f32_max_abs_err"] = (plain.double() - want).abs().max().item()
+        emit({**line, "gate": gate, "ok": err < gate})
         if not err < gate:
             raise AssertionError(f"{case}: error {err:.3e} >= {gate}")
+    del s3, tg, exact
+
+    # the filter's transfer function on one mode along each axis: all three
+    # sweeps (K1, K2, K2) scale sin(m x) + sin(m y) + sin(m z) by G(m dx)
+    filt = ct.get_filter(6, 0.45, periodic=True)
+    m = 3 * N // 8  # k dx = 3 pi / 4, where the filter damps
+    wave = sum(torch.sin(m * a) for a in (X, Y, Z))
+    gain = ct.schemes.transfer_function(filt, m * dx).item()
+    got = ct.filter_field(wave.float().contiguous(), filt)
+    rel = (got.double() - gain * wave).abs().max().item() / wave.abs().max().item()
+    emit({"phase": "accuracy", "case": f"filter_field sin({m} x) + sin({m} y) + sin({m} z) "
+          f"{filt.name} {N}^3 f32 vs G(k) f", "gain": gain,
+          "rel_err": rel, "gate": GATE, "ok": rel <= GATE})
+    if not rel <= GATE:
+        raise AssertionError(f"filter transfer function: rel error {rel:.3e} > {GATE}")
+    del wave, got
 
     # cuFFT's float32 Poisson solve against a host float64 FFT on the same
     # float32 right-hand side (benchmarks/diag_ns.py found the TPU's f32 FFT
@@ -471,13 +626,30 @@ def phase_accuracy(dev) -> None:
     if not div <= DIV_GATE:
         raise AssertionError(f"project: divergence {div:.3e} > {DIV_GATE}")
 
+    # on the projected field the dissipation is 2 nu enstrophy
+    z2 = 2 * NU_NS * spectra.enstrophy(up, dx, scheme).item()
+    eps = spectra.dissipation(up, dx, scheme, NU_NS).item()
+    rel = abs(z2 - eps) / eps
+    emit({"phase": "accuracy", "case": f"2 nu enstrophy vs dissipation, projected field {N}^3 "
+          "f32 (K10 + solves; K7 + K2)", "two_nu_enstrophy": z2, "dissipation": eps,
+          "rel_diff": rel, "gate": IDENTITY_GATE, "ok": rel <= IDENTITY_GATE})
+    if not rel <= IDENTITY_GATE:
+        raise AssertionError(f"enstrophy-dissipation identity: rel {rel:.3e} > {IDENTITY_GATE}")
 
-def _model(dev, scheme, method, dtype, second_derivative=False, nu=NU):
+
+def _generic(derivs):
+    """The bundle without its fused substeps: the models' generic form."""
+    return dataclasses.replace(derivs, fused_substep=None, fused_substep_vec=None)
+
+
+def _model(dev, scheme, method, dtype, second_derivative=False, nu=NU, generic=False):
     c = coordinates(N, device=dev)
     u = taylor_green(c, c, c)
     f0 = sine_field(c, c, c)[0]
     derivs = Derivs.single_device(2 * math.pi / N, scheme, method,
                                   second_derivative=second_derivative)
+    if generic:
+        derivs = _generic(derivs)
     return AdvectionDiffusion(derivs, nu=nu), f0.to(dtype), tuple(v.to(dtype) for v in u)
 
 
@@ -497,37 +669,56 @@ def _ns_velocity(dev, dtype):
 
 
 def _velocity_model(kind, dev, method, nu):
+    """"ns", "burgers", or "burgers_generic" (Burgers without its fused
+    substeps)."""
     dx = 2 * math.pi / N
     if kind == "ns":
         return NavierStokes.single_device(dx, ct.SCHEME4_PERIODIC, nu=nu, method=method)
     derivs = Derivs.single_device(dx, ct.SCHEME4_PERIODIC, method, second_derivative=True)
-    return Burgers(derivs, nu=nu)
+    return Burgers(_generic(derivs) if kind == "burgers_generic" else derivs, nu=nu)
 
 
-K1K2_PATH = path(compact_lane=6 * STEPS, compact_strided=12 * STEPS)
+# Per RK3 substep of the scalar model: the gradient (K7 for x and y, K2 for
+# z) and the diffusion: d1 (K1 + 2 K2), periodic d2 (K9 + K2's solve) or
+# non-periodic d2 (K8 + K2 acc). Burgers' generic stage runs that per
+# component.
+SLICE1_PATH = path(gradient_pair=3 * STEPS, compact_lane=3 * STEPS, compact_strided=9 * STEPS)
 FUSED_PATH = path(adv_lap=3 * STEPS, rk3_mega=3 * STEPS)
+GENERIC_D2_PATH = path(gradient_pair=3 * STEPS, compact_strided=3 * STEPS, lap_rhs=3 * STEPS,
+                       compact_strided_solve=3 * STEPS)
+WALLS_PATH = path(gradient_pair=3 * STEPS, compact_strided=3 * STEPS, d2_sum=3 * STEPS,
+                  compact_strided_acc=3 * STEPS)
 BURGERS_PATH = path(adv_lap3=3 * STEPS, rk3_mega=9 * STEPS)
+BURGERS_GENERIC_PATH = path(gradient_pair=9 * STEPS, compact_strided=9 * STEPS,
+                            lap_rhs=9 * STEPS, compact_strided_solve=9 * STEPS)
 NS_PATH = path(adv_lap3=3 * STEPS, rk3_mega=9 * STEPS, div_rhs=3 * STEPS,
                compact_strided_solve=3 * STEPS, pair_subtract=3 * STEPS,
                compact_strided_acc=3 * STEPS)
+# the NS steps, then enstrophy (K10 and two K2 solves) and dissipation (K7
+# and K2 for each component); the energy spectrum launches no kernel
+DIAGNOSTICS_PATH = {**NS_PATH, "curl_rhs": 1,
+                    "compact_strided_solve": NS_PATH["compact_strided_solve"] + 2,
+                    "gradient_pair": 3, "compact_strided": 3}
 VELOCITY_SLICES = {
     # name: (model, nu, launches expected over STEPS steps)
     "slice3_burgers": ("burgers", NU_BURGERS, BURGERS_PATH),
+    "slice4_burgers_generic": ("burgers_generic", NU_BURGERS, BURGERS_GENERIC_PATH),
     "slice3_ns": ("ns", NU_NS, NS_PATH),
     "slice3_ns_viscous": ("ns", NU_VISCOUS, NS_PATH),
 }
 SLICES = {
-    # name: (scheme, second_derivative, nu, launches expected over STEPS steps)
-    "slice1": (ct.SCHEME4_PERIODIC, False, NU, K1K2_PATH),
-    "slice2_fused": (ct.SCHEME4_PERIODIC, True, NU, FUSED_PATH),
-    "slice2_fused_viscous": (ct.SCHEME4_PERIODIC, True, NU_VISCOUS, FUSED_PATH),
-    "slice2_walls": (ct.SCHEME4, True, NU, K1K2_PATH),
+    # name: (scheme, second_derivative, nu, generic, launches expected over STEPS steps)
+    "slice1": (ct.SCHEME4_PERIODIC, False, NU, False, SLICE1_PATH),
+    "slice2_fused": (ct.SCHEME4_PERIODIC, True, NU, False, FUSED_PATH),
+    "slice2_fused_viscous": (ct.SCHEME4_PERIODIC, True, NU_VISCOUS, False, FUSED_PATH),
+    "slice4_generic_d2": (ct.SCHEME4_PERIODIC, True, NU, True, GENERIC_D2_PATH),
+    "slice2_walls": (ct.SCHEME4, True, NU, False, WALLS_PATH),
 }
 
 
 def phase_slice(dev, name) -> dict:
-    scheme, d2, nu, want = SLICES[name]
-    model, f0, u = _model(dev, scheme, "auto", torch.float32, d2, nu)
+    scheme, d2, nu, generic, want = SLICES[name]
+    model, f0, u = _model(dev, scheme, "auto", torch.float32, d2, nu, generic)
     fused = model.derivs.fused_substep is not None
     torch.cuda.synchronize()
     zero_launch_counts()
@@ -554,7 +745,8 @@ def phase_slice(dev, name) -> dict:
           and fused == (want == FUSED_PATH))
     emit({"phase": "slice", "slice": name,
           "case": f"AdvectionDiffusion {scheme.name} second_derivative={d2} {N}^3 f32, "
-          f"{STEPS} RK3 steps dt={DT} nu={nu}", "method": "auto", "fused_substep": fused,
+          f"{STEPS} RK3 steps dt={DT} nu={nu}" + (", generic step" if generic else ""),
+          "method": "auto", "fused_substep": fused,
           "max_abs_err_vs_f64_plain": err, "rel_err": rel, "gate": SLICE_GATE,
           "rel_err_of_increment": rel_inc, "increment_gate": INC_GATE,
           "diffusion_share_of_max_f": diffusion,
@@ -593,8 +785,8 @@ def phase_velocity_slice(dev, name) -> dict:
     ok = (finite and all(c.shape == (N, N, N) and c.dtype == torch.float32 for c in u)
           and err / scale <= SLICE_GATE and err / inc <= INC_GATE and launches == want)
     line = {"phase": "slice", "slice": name,
-            "case": f"{type(model).__name__} {ct.SCHEME4_PERIODIC.name} {N}^3 f32, {STEPS} RK3 "
-            f"steps dt={DT} nu={nu}", "method": "auto",
+            "case": f"{type(model).__name__} ({kind}) {ct.SCHEME4_PERIODIC.name} {N}^3 f32, "
+            f"{STEPS} RK3 steps dt={DT} nu={nu}", "method": "auto",
             "max_abs_err_vs_f64_plain": err, "rel_err": err / scale, "gate": SLICE_GATE,
             "rel_err_of_increment": err / inc, "increment_gate": INC_GATE,
             "diffusion_share_of_max_u": diffusion, "finite": finite, "launches": launches,
@@ -606,6 +798,113 @@ def phase_velocity_slice(dev, name) -> dict:
     emit({**line, "ok": ok})
     if not ok:
         raise AssertionError(f"{name} failed: see its slice line")
+    return launches
+
+
+def _diagnostics(u, scheme, method):
+    dx = 2 * math.pi / N
+    return (spectra.enstrophy(u, dx, scheme, method=method),
+            spectra.dissipation(u, dx, scheme, NU_NS, method=method),
+            spectra.energy_spectrum(u, dx))
+
+
+def phase_diagnostics(dev) -> dict:
+    """The diagnostics slice: 5 Navier–Stokes steps through method="auto",
+    then the statistics a user reports of the flow (enstrophy, dissipation,
+    the energy spectrum), against the same on the plain float64 path."""
+    scheme = ct.SCHEME4_PERIODIC
+    model = _velocity_model("ns", dev, "auto", NU_NS)
+    u0 = tuple(c.float() for c in _ns_velocity(dev, torch.float64))
+    u64 = tuple(c.double() for c in u0)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    u = model.run(u0, DT, STEPS)
+    enst, diss, spec = _diagnostics(u, scheme, "auto")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+
+    ref_u = _velocity_model("ns", dev, "matmul", NU_NS).run(u64, DT, STEPS)
+    ref = _diagnostics(ref_u, scheme, "matmul")
+    scale = max(c.abs().max().item() for c in ref_u)
+    err_u = max((a.double() - b).abs().max().item() for a, b in zip(u, ref_u)) / scale
+    rel = {name: abs(got.item() - want.item()) / abs(want.item())
+           for name, got, want in (("enstrophy", enst, ref[0]), ("dissipation", diss, ref[1]))}
+    rel["energy_spectrum"] = ((spec.double() - ref[2]).abs().max() / ref[2].abs().max()).item()
+    ke = 0.5 * sum((c.double() ** 2).mean().item() for c in u)
+    parseval = abs(spec.double().sum().item() - ke) / ke
+    finite = all(bool(torch.isfinite(t).all().item()) for t in (*u, enst, diss, spec))
+    ok = (finite and err_u <= SLICE_GATE and max(rel.values()) <= SLICE_GATE
+          and parseval <= SLICE_GATE and spec.shape == ref[2].shape
+          and launches == DIAGNOSTICS_PATH)
+    emit({"phase": "slice", "slice": "slice4_diagnostics",
+          "case": f"NavierStokes {scheme.name} {N}^3 f32, {STEPS} RK3 steps dt={DT} nu={NU_NS}, "
+          "then enstrophy, dissipation, energy_spectrum", "method": "auto",
+          "rel_err_u": err_u, "rel_err": rel, "gate": SLICE_GATE,
+          "enstrophy": enst.item(), "dissipation": diss.item(),
+          "two_nu_enstrophy": 2 * NU_NS * enst.item(), "n_shells": spec.shape[0],
+          "sum_E_vs_kinetic_energy": parseval, "finite": finite, "launches": launches,
+          "launches_expected": DIAGNOSTICS_PATH, "wall_s_incl_first_calls": wall, "ok": ok})
+    if not ok:
+        raise AssertionError("slice4_diagnostics failed: see its slice line")
+    return launches
+
+
+def _vector_calculus(f, u, method):
+    """The slice's entry points on one field f and one velocity u: gradient
+    (periodic and not), curl, laplacian (periodic and not), filter_field
+    (non-periodic and periodic, all three axes)."""
+    dx = 2 * math.pi / N
+    out = {}
+    for scheme in (ct.SCHEME4_PERIODIC, ct.SCHEME4):
+        for name, g in zip(("x", "y", "z"), ct.gradient(f, dx, scheme, method=method)):
+            out[f"gradient {name} {scheme.name}"] = (g, GATE)
+    for name, w in zip(("wx", "wy", "wz"), ct.curl(u, dx, ct.SCHEME4_PERIODIC, method=method)):
+        out[f"curl {name} {ct.SCHEME4_PERIODIC.name}"] = (w, GATE)
+    for scheme in (ct.SCHEME4_D2_PERIODIC, ct.SCHEME4_D2):
+        out[f"laplacian {scheme.name}"] = (ct.laplacian(f, dx, scheme, method=method),
+                                           _gate(scheme))
+    for periodic in (False, True):
+        filt = ct.get_filter(6, 0.45, periodic)
+        out[f"filter_field {filt.name}"] = (ct.filter_field(f, filt, method=method), GATE)
+    return out
+
+
+# gradient: K7 + K2 (z) per scheme; curl: K10 + two K2 solves; laplacian:
+# K9 + K2's solve (periodic), K8 + K2 acc (walls); filter_field: K1 + two
+# K2, in filter mode, per filter
+VECTOR_CALCULUS_PATH = path(gradient_pair=2, compact_strided=2, curl_rhs=1,
+                            compact_strided_solve=3, lap_rhs=1, d2_sum=1, compact_strided_acc=1,
+                            compact_lane_filter=2, compact_strided_filter=4)
+
+
+def phase_vector_calculus(dev) -> dict:
+    """The slice's entry points at 256^3 f32 through method="auto" on a
+    seeded random field and velocity, each output against the plain float64
+    path on the same inputs, with the launch counts of the run."""
+    g = torch.Generator(device=dev).manual_seed(20261018)
+    f, *u = (torch.randn((N, N, N), generator=g, device=dev) for _ in range(4))
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    got = _vector_calculus(f, tuple(u), "auto")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    ref = _vector_calculus(f.double(), tuple(c.double() for c in u), "matmul")
+    errors, ok = {}, launches == VECTOR_CALCULUS_PATH
+    for case, (out, gate) in got.items():
+        want = ref[case][0]
+        rel = ((out.double() - want).abs().max() / want.abs().max()).item()
+        fine = (rel <= gate and out.shape == want.shape and out.dtype == torch.float32
+                and bool(torch.isfinite(out).all().item()))
+        errors[case] = {"rel_err": rel, "gate": gate, "ok": fine}
+        ok = ok and fine
+    emit({"phase": "slice", "slice": "slice4_vector_calculus",
+          "case": f"gradient, curl, laplacian, filter_field {N}^3 f32, random inputs",
+          "method": "auto", "outputs": errors, "launches": launches,
+          "launches_expected": VECTOR_CALCULUS_PATH, "ok": ok})
+    if not ok:
+        raise AssertionError("slice4_vector_calculus failed: see its slice line")
     return launches
 
 
@@ -685,6 +984,66 @@ def _slice3_times(times, f, g, dev) -> None:
     times["divergence_fused_ms"] = cuda_time_ms(lambda: ct.divergence(u, dx, s1))
 
 
+def _slice4_times(times, f, g, dev) -> None:
+    """K7-K10 and the filter mode at 256^3, each in turns with its plain
+    float32 version, and each fused route in turns with the unfused
+    composition of kernels it replaces; the diagnostics of a velocity."""
+    dx = 2 * math.pi / N
+    s1, s2 = FUSED_PAIRS[0]
+    walls = ct.SCHEME4_D2
+    filt = ct.get_filter(6, 0.45, periodic=False)
+    for name, axis in (("filter_x", -1), ("filter_y", -2), ("filter_z", -3)):
+        def run(method, axis=axis):
+            return lambda: ct.derivative(f, 1.0, filt, axis=axis, method=method)
+        times[name] = _turns(run("matmul"), run("kernel"))
+        times[name]["library_ms"] = _library_ms(f, filt, 1.0, axis)
+    times["filter_field"] = _turns(lambda: ct.filter_field(f, filt, method="matmul"),
+                                   lambda: ct.filter_field(f, filt))
+    times["gradient_pair"] = _turns(lambda: pair.gradient_pair_ref(f, dx, dx, s1),
+                                    lambda: pair.gradient_pair(f, dx, dx, s1))
+    times["d2_sum"] = _turns(lambda: pair.d2_pair_sum_ref(f, dx, dx, walls),
+                             lambda: pair.d2_pair_sum(f, dx, dx, walls))
+    times["lap_rhs"] = _turns(lambda: adv_lap.lap_rhs_ref(f, dx, dx, dx, s2),
+                              lambda: adv_lap.lap_rhs(f, dx, dx, dx, s2))
+    a, m = (torch.randn((N, N, N), generator=g, device=dev) for _ in range(2))
+    u = (f, a, m)
+    times["curl_rhs"] = _turns(lambda: vec.curl_rhs_ref(f, a, m, dx, dx, dx, s1),
+                               lambda: vec.curl_rhs(f, a, m, dx, dx, dx, s1))
+
+    # each fused route against the kernels it replaces, in turns: "plain"
+    # below is the unfused composition (single K1/K2 launches and sums)
+    def d1(c, axis):
+        return ct.derivative(c, dx, s1, axis=axis, method="kernel")
+
+    def d2(c, scheme, axis):
+        return ct.derivative(c, dx, scheme, axis=axis, method="kernel")
+
+    def curl_unfused():
+        ux, uy, uz = u
+        return (d1(uz, -2) - d1(uy, -3), d1(ux, -3) - d1(uz, -1), d1(uy, -1) - d1(ux, -2))
+
+    routes = {
+        "gradient_pair_vs_k1_k2": (lambda: (d1(f, -1), d1(f, -2)),
+                                   lambda: pair.gradient_pair(f, dx, dx, s1)),
+        "d2_sum_vs_unfused": (lambda: d2(f, walls, -1) + d2(f, walls, -2),
+                              lambda: pair.d2_pair_sum(f, dx, dx, walls)),
+        "laplacian_periodic_vs_unfused": (
+            lambda: d2(f, s2, -1) + d2(f, s2, -2) + d2(f, s2, -3),
+            lambda: ct.laplacian(f, dx, s2)),
+        "laplacian_walls_vs_unfused": (
+            lambda: d2(f, walls, -1) + d2(f, walls, -2) + d2(f, walls, -3),
+            lambda: ct.laplacian(f, dx, walls)),
+        "curl_vs_unfused": (curl_unfused, lambda: ct.curl(u, dx, s1)),
+    }
+    for key, (unfused, fused) in routes.items():
+        t = _turns(unfused, fused)
+        times[key] = {"fused_ms": t["kernel_ms"], "unfused_ms": t["plain_ms"],
+                      "readings_ms": [t["kernel_readings_ms"], t["plain_readings_ms"]]}
+    times["enstrophy_ms"] = cuda_time_ms(lambda: spectra.enstrophy(u, dx, s1))
+    times["dissipation_ms"] = cuda_time_ms(lambda: spectra.dissipation(u, dx, s1, NU_NS))
+    times["energy_spectrum_ms"] = cuda_time_ms(lambda: spectra.energy_spectrum(u, dx))
+
+
 def _velocity_step_times(steps, dev) -> None:
     """The Navier–Stokes step, and the Burgers step on each of its routes."""
     u = _ns_velocity(dev, torch.float32)
@@ -738,6 +1097,7 @@ def phase_times(dev, smi) -> dict:
     times["rk3_mega_last_ms"] = cuda_time_ms(
         lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, dx, **RK3_MID, write_q=False))
     _slice3_times(times, f, g, dev)
+    _slice4_times(times, f, g, dev)
     out = torch.empty_like(f)
     copy_ms = cuda_time_ms(lambda: out.copy_(f))
     steps = {}
@@ -776,7 +1136,10 @@ def _summary(stats, launches, times) -> list:
         "rk3_mega": ("rk3_mega",),
         **{name: (name,) for name in (
             "compact_strided_solve", "compact_strided_acc", "compact_strided_mul",
-            "pair_subtract", "adv_lap3", "div_rhs")},
+            "pair_subtract", "adv_lap3", "div_rhs", "gradient_pair", "d2_sum", "lap_rhs",
+            "curl_rhs")},
+        "compact_lane_filter": ("filter_x",),
+        "compact_strided_filter": ("filter_y", "filter_z"),
     }
     rows = []
     for name, keys in timed.items():
@@ -809,6 +1172,8 @@ def main() -> None:
     phase_accuracy(dev)
     launches = {name: phase_slice(dev, name) for name in SLICES}
     launches.update({name: phase_velocity_slice(dev, name) for name in VELOCITY_SLICES})
+    launches["slice4_vector_calculus"] = phase_vector_calculus(dev)
+    launches["slice4_diagnostics"] = phase_diagnostics(dev)
     times = phase_times(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")

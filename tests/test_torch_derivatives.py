@@ -13,6 +13,7 @@ Inputs are made by numpy from a seed and handed to both packages.
   kernels meet on d2 in ``tests/test_second_derivative.py``.
 """
 
+import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,11 +115,15 @@ def test_methods_agree_on_cpu(method):
 
 
 def test_rejects_second_derivative_and_unknown_method():
-    """As ``cfd_tpu``: ``derivative`` takes d1 and d2 schemes, and only the
-    second-derivative ops check the order. Filters are not ported yet."""
+    """As ``cfd_tpu``: ``derivative`` takes d1 and d2 schemes and filters
+    (no spacing scale), and only the second-derivative ops check the order;
+    the kernels' tables serve no other order."""
     f = torch.zeros(8, 8, 32)
     with pytest.raises(ValueError, match="derivative_order"):
-        ct.dfdx(f, 0.1, tsch.get_filter(6, 0.45, True))
+        ct.dfdx(f, 0.1, dataclasses.replace(tsch.SCHEME4, derivative_order=3))
+    g = torch.randn(8, 8, 32, dtype=torch.float64)
+    filt = tsch.get_filter(6, 0.45, True)
+    assert torch.equal(ct.dfdx(g, 0.1, filt), ct.filter_field(g, filt, axis=-1))
     with pytest.raises(ValueError):
         ct.dfdx(f, 0.1, method="pcr")
     with pytest.raises(ValueError, match="derivative_order"):

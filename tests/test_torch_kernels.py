@@ -1,6 +1,7 @@
 """The CUDA kernels K1 (compact_lane), K2 (compact_strided, with its acc,
 mul and solve_only epilogues), K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3),
-K6 (div_rhs) and pair_subtract (K1 + K2 with acc).
+K6 (div_rhs), pair_subtract (K1 + K2 with acc), K7 (gradient_pair), K8
+(d2_sum), K9 (lap_rhs) and K10 (curl_rhs); K1 and K2 also in filter mode.
 
 A CUDA kernel cannot run on the CPU, so its arithmetic is held here in two
 ways:
@@ -14,8 +15,9 @@ ways:
 * on the card (``gpu`` marker; skipped without one), each kernel against
   its plain PyTorch version at the same gate, with its launch counter.
 
-The transcription covers the first- and second-derivative schemes; K3-K6
-run the same line solves (``compact_common.cuh``) on other sources.
+The transcription covers the first- and second-derivative schemes and the
+filters; K3-K10 run the same line solves (``compact_common.cuh``) on other
+sources.
 """
 
 import ctypes
@@ -31,7 +33,8 @@ from cfd_tpu_torch.schemes import rhs_matrix
 
 D1_SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME6, ct.SCHEME6_PERIODIC]
 D2_SCHEMES = [ct.SCHEME4_D2, ct.SCHEME4_D2_PERIODIC, ct.SCHEME6_D2, ct.SCHEME6_D2_PERIODIC]
-SCHEMES = D1_SCHEMES + D2_SCHEMES
+FILTERS = [ct.get_filter(o, 0.45, p) for o in (4, 6) for p in (False, True)]
+SCHEMES = D1_SCHEMES + D2_SCHEMES + FILTERS
 IDS = [s.name for s in SCHEMES]
 FUSED = [(ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC), (ct.SCHEME6_PERIODIC, ct.SCHEME6_D2_PERIODIC)]
 FUSED_IDS = ["pade4", "lele6"]
@@ -148,7 +151,7 @@ def test_kernel_arithmetic_float32_within_gate(scheme):
     assert np.abs(got - ref).max() <= _gate(scheme) * np.abs(ref).max()
 
 
-@pytest.mark.parametrize("scheme", D2_SCHEMES[::2], ids=IDS[4::2])
+@pytest.mark.parametrize("scheme", D2_SCHEMES[::2], ids=IDS[4:8:2])
 def test_d2_closure_rows_over_second_differences(scheme):
     """The second-difference weights rebuild each closure row exactly, and
     on a smooth field through zero the float32 wall rows stay within the
@@ -190,7 +193,7 @@ def _d2_wall_budget(scheme, planes):
     return tuple(np.abs(g - ref).max() / np.abs(ref).max() for g in got)
 
 
-@pytest.mark.parametrize("scheme", D2_SCHEMES[::2], ids=IDS[4::2])
+@pytest.mark.parametrize("scheme", D2_SCHEMES[::2], ids=IDS[4:8:2])
 def test_d2_walls_on_smooth_benchmark_field_within_gate(scheme):
     """The field on which the card reads its worst d2 error: the float32
     arithmetic stays within the d2 wall gate there too."""
@@ -442,7 +445,7 @@ def test_navier_stokes_step_runs_the_kernels(cuda):
     assert [a - b for a, b in zip(after[:5], before[:5])] == [0, 0, 9, 3, 3]
     assert after[5] - before[5] == 3
     assert {k: after[6][k] - before[6][k] for k in after[6]} == {
-        "derivative": 0, "acc": 3, "mul": 0, "solve": 3}
+        "derivative": 0, "filter": 0, "acc": 3, "mul": 0, "solve": 3}
     ref_ns = NavierStokes.single_device(spacing, ct.SCHEME4_PERIODIC, nu=1e-2, method="matmul")
     ref = ref_ns.step(tuple(v.double() for v in u), 1e-3)
     scale = max(v.abs().max().item() for v in ref)
@@ -465,6 +468,130 @@ def test_slice3_kernels_refuse_what_they_do_not_take(cuda):
         strided.leading_solve(f.double(), s1)
     with pytest.raises(TypeError):
         ct.divergence((f.double(),) * 3, 0.1, s1)  # 'auto' on float64 CUDA tensors
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 256, 256), (40, 96, 200), (5, 7, 9)])
+@pytest.mark.parametrize("scheme", D1_SCHEMES, ids=IDS[:4])
+def test_gradient_pair_kernel_matches_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(16)
+    f = (torch.randn(shape, generator=g) + 0.5).to(cuda)
+    before = (pair.GRADIENT_LAUNCHES, lane.LAUNCHES, strided.LAUNCHES)
+    got = pair.gradient_pair(f, 0.03, 0.02, scheme)
+    torch.cuda.synchronize()
+    assert (pair.GRADIENT_LAUNCHES, lane.LAUNCHES, strided.LAUNCHES) == (before[0] + 1,
+                                                                         *before[1:])
+    ref = pair.gradient_pair_ref(f.double(), 0.03, 0.02, scheme)
+    for g_, r_ in zip(got, ref):
+        assert _rel_err(g_, r_) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 256, 256), (40, 96, 200), (2, 3, 8, 9)])
+@pytest.mark.parametrize("scheme", D2_SCHEMES, ids=IDS[4:8])
+def test_d2_sum_kernel_matches_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(17)
+    f = (torch.randn(shape, generator=g) + 0.5).to(cuda)
+    before = pair.D2_SUM_LAUNCHES
+    got = pair.d2_pair_sum(f, 0.03, 0.02, scheme)
+    torch.cuda.synchronize()
+    assert pair.D2_SUM_LAUNCHES == before + 1
+    assert _rel_err(got, pair.d2_pair_sum_ref(f.double(), 0.03, 0.02, scheme)) <= _gate(scheme)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 16, 128), (40, 96, 200), (7, 5, 9)])
+@pytest.mark.parametrize("scheme", [ct.SCHEME4_D2_PERIODIC, ct.SCHEME6_D2_PERIODIC],
+                         ids=["pade4_d2", "lele6_d2"])
+def test_lap_rhs_kernel_and_laplacian_match_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(18)
+    f = (torch.randn(shape, generator=g) + 0.5).to(cuda)
+    spacing = (0.04, 0.03, 0.02)
+    before = (adv_lap.LAP_LAUNCHES, strided.MODE_LAUNCHES["solve"])
+    r = adv_lap.lap_rhs(f, *spacing, scheme)
+    lap = ct.laplacian(f, spacing, scheme)
+    torch.cuda.synchronize()
+    assert (adv_lap.LAP_LAUNCHES, strided.MODE_LAUNCHES["solve"]) == (before[0] + 2,
+                                                                     before[1] + 1)
+    assert _rel_err(r, adv_lap.lap_rhs_ref(f.double(), *spacing, scheme)) <= F32_GATE
+    ref = ct.laplacian(f.double(), spacing, scheme, method="matmul")
+    assert _rel_err(lap, ref) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 16, 128), (40, 96, 200)])
+@pytest.mark.parametrize("scheme", [ct.SCHEME4_D2, ct.SCHEME6_D2], ids=["pade4_d2", "lele6_d2"])
+def test_walls_laplacian_runs_d2_sum_and_acc(cuda, scheme, shape):
+    """K8, then K2 with acc on d2 closure rows: the non-periodic route."""
+    g = torch.Generator(device="cpu").manual_seed(19)
+    f = (torch.randn(shape, generator=g) + 0.5).to(cuda)
+    a = torch.randn(shape, generator=g).to(cuda)
+    before = (pair.D2_SUM_LAUNCHES, strided.MODE_LAUNCHES["acc"])
+    lap = ct.laplacian(f, (0.04, 0.03, 0.02), scheme)
+    acc = strided.strided_derivative(f, 0.04, scheme, 0, acc=a)
+    torch.cuda.synchronize()
+    assert (pair.D2_SUM_LAUNCHES, strided.MODE_LAUNCHES["acc"]) == (before[0] + 1,
+                                                                   before[1] + 2)
+    ref = ct.laplacian(f.double(), (0.04, 0.03, 0.02), scheme, method="matmul")
+    assert _rel_err(lap, ref) <= D2_WALL_GATE
+    ref = strided.strided_derivative_ref(f.double(), 0.04, scheme, 0, acc=a.double())
+    assert _rel_err(acc, ref) <= D2_WALL_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 16, 128), (40, 96, 200), (7, 6, 9)])
+@pytest.mark.parametrize("scheme", D1_SCHEMES, ids=IDS[:4])
+def test_curl_kernel_and_curl_match_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(20)
+    u = tuple(torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    u64 = tuple(c.double() for c in u)
+    spacing = (0.04, 0.03, 0.02)
+    before = (vec.CURL_LAUNCHES, strided.MODE_LAUNCHES["solve"], pair.GRADIENT_LAUNCHES)
+    w = ct.curl(u, spacing, scheme)
+    torch.cuda.synchronize()
+    want = (1, 2, 0) if scheme.periodic else (0, 0, 1)
+    after = (vec.CURL_LAUNCHES, strided.MODE_LAUNCHES["solve"], pair.GRADIENT_LAUNCHES)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    for got, ref in zip(w, ct.curl(u64, spacing, scheme, method="matmul")):
+        assert _rel_err(got, ref) <= F32_GATE
+    if scheme.periodic:
+        got = vec.curl_rhs(*u, *spacing, scheme)
+        for g_, r_ in zip(got, vec.curl_rhs_ref(*u64, *spacing, scheme)):
+            assert _rel_err(g_, r_) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", FILTERS, ids=IDS[8:])
+def test_filter_field_runs_k1_and_k2_in_filter_mode(cuda, scheme):
+    g = torch.Generator(device="cpu").manual_seed(21)
+    f = (torch.randn((24, 40, 72), generator=g) + 3.0).to(cuda)
+    before = (lane.MODE_LAUNCHES["filter"], strided.MODE_LAUNCHES["filter"])
+    got = ct.filter_field(f, scheme)
+    torch.cuda.synchronize()
+    assert (lane.MODE_LAUNCHES["filter"], strided.MODE_LAUNCHES["filter"]) == (before[0] + 1,
+                                                                               before[1] + 2)
+    ref = ct.filter_field(f.double(), scheme, method="matmul")
+    assert _rel_err(got, ref) <= F32_GATE
+
+
+@pytest.mark.gpu
+def test_vector_calculus_kernels_refuse_what_they_do_not_take(cuda):
+    f = torch.ones(8, 16, 32, device=cuda)
+    s1 = ct.SCHEME4_PERIODIC
+    with pytest.raises(TypeError):
+        pair.gradient_pair(f.double(), 0.1, 0.1, s1)
+    with pytest.raises(TypeError):
+        pair.d2_pair_sum(f.double(), 0.1, 0.1, ct.SCHEME4_D2)
+    with pytest.raises(TypeError):
+        adv_lap.lap_rhs(f.double(), 0.1, 0.1, 0.1, ct.SCHEME4_D2_PERIODIC)
+    with pytest.raises(ValueError, match="contiguous"):
+        vec.curl_rhs(f, f.transpose(1, 2).contiguous().transpose(1, 2), f, 0.1, 0.1, 0.1, s1)
+    with pytest.raises(RuntimeError, match="gradient_pair"):
+        pair.gradient_pair(torch.ones(2, 4, 20000, device=cuda), 0.1, 0.1, s1)
+    with pytest.raises(TypeError):
+        ct.curl((f.double(),) * 3, 0.1, s1)  # 'auto' on float64 CUDA tensors
+    with pytest.raises(TypeError):
+        ct.gradient(f.double(), 0.1, s1)
 
 
 if __name__ == "__main__":

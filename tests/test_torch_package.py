@@ -37,6 +37,7 @@ def test_import_loads_no_jax():
         "import cfd_tpu_torch.utils, cfd_tpu_torch.ops._native\n"
         "import cfd_tpu_torch.ops.adv_lap, cfd_tpu_torch.ops.megastep, cfd_tpu_torch.ops.fused_step\n"
         "import cfd_tpu_torch.ops.vec, cfd_tpu_torch.ops.pair, cfd_tpu_torch.ops.poisson\n"
+        "import cfd_tpu_torch.ops.spectra\n"
         "import cfd_tpu_torch.models.burgers, cfd_tpu_torch.models.navier_stokes\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfd_tpu.'))))"
     )
@@ -93,7 +94,8 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
 
 def test_sources_are_present():
     kernels = {"compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu",
-               "adv_lap3.cu", "div_rhs.cu"}
+               "adv_lap3.cu", "div_rhs.cu", "pair.cu", "d2_sum.cu", "lap_rhs.cu",
+               "curl_rhs.cu"}
     assert kernels <= set(_native.SOURCES)
     for name in _native.SOURCES + _native.HEADERS:
         assert (_native.CSRC / name).is_file()
