@@ -4,13 +4,15 @@ Compact (Padé) first and second derivatives and compact filters of 3-D
 fields, the gradient, divergence, curl and compact-d2 Laplacian, the
 spectral Poisson solve and Helmholtz projection, the spectral diagnostics
 (``ops.spectra``), and the RK3 advection–diffusion, Burgers and
-Navier–Stokes steppers with their fused substeps, on PyTorch with
+Navier–Stokes steppers with their fused substeps, and the distributed
+layer (``parallel``: meshes of devices, the distributed compact solver and
+the distributed RK3 substep), on PyTorch with
 hand-written CUDA kernels for Hopper (``csrc/``). The JAX package
 ``cfd_tpu`` beside it is the reference the port is held against; this
 package never imports it or ``jax``.
 """
 
-from . import models, ops, oracle, schemes, utils
+from . import models, ops, oracle, parallel, schemes, utils
 from .ops import (
     curl,
     d2fdx2,
@@ -27,6 +29,7 @@ from .ops import (
     project,
     solve_poisson,
 )
+from .parallel import DistributedCompactSolver, Grid, make_mesh
 from .schemes import (
     SCHEME4,
     SCHEME4_D2,
@@ -46,6 +49,7 @@ __all__ = [
     "models",
     "ops",
     "oracle",
+    "parallel",
     "schemes",
     "utils",
     "derivative",
@@ -62,6 +66,9 @@ __all__ = [
     "d2fdy2",
     "d2fdz2",
     "laplacian",
+    "DistributedCompactSolver",
+    "Grid",
+    "make_mesh",
     "SCHEME4",
     "SCHEME4_PERIODIC",
     "SCHEME6",

@@ -12,7 +12,10 @@ second-derivative ``laplacian`` when the ``Derivs`` bundle carries one
 substeps x (3 first derivatives + the diffusion term) plus PyTorch's
 elementwise tail. With a periodic d2 scheme and ``method="auto"`` the
 bundle also carries the fused substep (``ops/fused_step.py``): two kernels
-per substep, K3 and K4, and no elementwise passes.
+per substep, K3 and K4, and no elementwise passes. ``Derivs.distributed``
+runs the same model on fields split over a device mesh
+(``parallel.Sharded``), with the distributed fused substep
+(``parallel/fused.py``).
 """
 
 from __future__ import annotations
@@ -93,6 +96,35 @@ class Derivs:
             fused_substep_vec=fused_vec,
         )
 
+    @classmethod
+    def distributed(cls, solver, d2_solver=None):
+        """Bundle over a ``parallel.DistributedCompactSolver``: fields are
+        ``parallel.Sharded``.
+
+        ``d2_solver``, a solver over the same grid geometry with a
+        second-derivative scheme, adds the ``laplacian`` (the sum of its
+        three axis derivatives) and, for a first-derivative ``solver``, the
+        distributed fused substep (``parallel/fused.py``; None where it does
+        not apply). ``gradient`` takes K7 per shard on z-pencil meshes.
+        """
+        from ..parallel.fused import make_fused_substep_distributed, make_gradient_distributed
+
+        lap = fused = None
+        if d2_solver is not None:
+            if d2_solver.grid.scheme.derivative_order != 2:
+                raise ValueError("d2_solver must carry a derivative_order=2 scheme")
+            lap = lambda f: d2_solver.dfdx(f) + d2_solver.dfdy(f) + d2_solver.dfdz(f)
+            if solver.grid.scheme.derivative_order == 1:
+                fused = make_fused_substep_distributed(solver, d2_solver)
+        return cls(
+            dfdx=solver.dfdx,
+            dfdy=solver.dfdy,
+            dfdz=solver.dfdz,
+            gradient=make_gradient_distributed(solver),
+            laplacian=lap,
+            fused_substep=fused,
+        )
+
 
 class AdvectionDiffusion(nn.Module):
     """RK3 advection–diffusion of a scalar by a frozen velocity field."""
@@ -102,7 +134,7 @@ class AdvectionDiffusion(nn.Module):
         self.derivs = derivs
         self.nu = nu
 
-    def rhs(self, f: torch.Tensor, u) -> torch.Tensor:
+    def rhs(self, f, u):
         ux, uy, uz = u
         d = self.derivs
         fx, fy, fz = d.gradient(f)
@@ -113,8 +145,9 @@ class AdvectionDiffusion(nn.Module):
             lap = d.dfdx(fx) + d.dfdy(fy) + d.dfdz(fz)
         return -adv + self.nu * lap
 
-    def step(self, f: torch.Tensor, u, dt: float) -> torch.Tensor:
-        """One low-storage RK3 step."""
+    def step(self, f, u, dt: float):
+        """One low-storage RK3 step; ``f`` and ``u`` are tensors, or
+        ``parallel.Sharded`` with a distributed bundle."""
         fs = self.derivs.fused_substep
         if fs is not None:
             q = None  # the first substep has no q (a == 0)
@@ -123,9 +156,9 @@ class AdvectionDiffusion(nn.Module):
                 # q' is dead after the last substep: K4 skips writing it
                 q, f = fs(f, u, q, dt, self.nu, a, b, last=i == last)
             return f
-        q = torch.zeros_like(f)
+        q = None  # the first substep has no q (a == 0)
         for a, b in zip(RK3_A, RK3_B):
-            q = a * q + dt * self.rhs(f, u)
+            q = dt * self.rhs(f, u) if q is None else a * q + dt * self.rhs(f, u)
             f = f + b * q
         return f
 

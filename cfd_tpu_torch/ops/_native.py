@@ -36,6 +36,7 @@ __all__ = [
     "check",
     "check_operands",
     "check_order",
+    "fill_coef",
     "kernel_tables",
     "launch_tables",
     "xy_planes_fit",
@@ -47,8 +48,9 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu",
     "adv_lap3.cu", "div_rhs.cu", "pair.cu", "d2_sum.cu", "lap_rhs.cu", "curl_rhs.cu",
+    "lane_dist.cu", "strided_dist.cu",
 )
-HEADERS = ("compact_common.cuh", "xy_phase.cuh")
+HEADERS = ("compact_common.cuh", "xy_phase.cuh", "dist_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -162,6 +164,10 @@ def library() -> ctypes.CDLL:
     f32 = ctypes.c_float
     lib.cfd_rk3_mega.argtypes = [p] * 9 + [coef, coef, f32, f32, f32, f32, i32, i64, p]
     lib.cfd_rk3_mega.restype = i32
+    lib.cfd_lane_dist.argtypes = [p] * 6 + [coef, i64, i32, i32, p]
+    lib.cfd_lane_dist.restype = i32
+    lib.cfd_strided_dist.argtypes = [p] * 6 + [coef, i64, i64, i32, i32, p]
+    lib.cfd_strided_dist.restype = i32
     return lib
 
 
@@ -285,7 +291,9 @@ def second_differences(row: np.ndarray) -> np.ndarray:
     return d
 
 
-def _fill(coef: dict, scale: float) -> Coef:
+def fill_coef(coef: dict, scale: float) -> Coef:
+    """The ctypes ``Coef`` of a coefficient dict (``kernel_tables``) at one
+    spacing scale."""
     c = Coef()
     for name, value in {**coef, "scale": scale}.items():
         if isinstance(value, np.ndarray):
@@ -305,4 +313,4 @@ def launch_tables(scheme: CompactScheme, n: int, dx: float, device: torch.device
     """(Coef, float32 (5, n) table on ``device``) for one kernel launch."""
     coef, tab = kernel_tables(scheme, n)
     scale = (1.0 / float(dx)) ** scheme.derivative_order
-    return _fill(coef, scale), torch.as_tensor(tab, dtype=torch.float32, device=device)
+    return fill_coef(coef, scale), torch.as_tensor(tab, dtype=torch.float32, device=device)

@@ -316,14 +316,17 @@ def scheme_from_dict(d: dict) -> CompactScheme:
 
 
 def lhs_bands(
-    scheme: CompactScheme, n: int
+    scheme: CompactScheme, n: int, *, first_block: bool = True, last_block: bool = True
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Return the float64 (dl, d, du) bands of the scheme's LHS for ``n`` rows.
 
-    Non-periodic schemes get their closure rows at both ends. dl[i]
-    multiplies x[i-1] (dl[0] = 0), du[i] multiplies x[i+1] (du[n-1] = 0).
-    The cyclic corners of a periodic scheme are not in the bands; the
-    cyclic factor carries them.
+    Non-periodic schemes get their closure rows at the top when
+    ``first_block`` and at the bottom when ``last_block``: a block of a
+    distributed line that holds neither physical end takes plain interior
+    rows (the substructuring method carries its coupling to the
+    neighbouring blocks). dl[i] multiplies x[i-1] (dl[0] = 0), du[i]
+    multiplies x[i+1] (du[n-1] = 0). The cyclic corners of a periodic
+    scheme are not in the bands; the cyclic factor carries them.
     """
     if n < scheme.min_points():
         raise ValueError(f"n={n} too small for scheme {scheme.name}")
@@ -333,8 +336,8 @@ def lhs_bands(
     dl[0] = 0.0
     du[-1] = 0.0
     if not scheme.periodic:
-        rows = [(j, row) for j, row in enumerate(scheme.left_rows)]
-        rows += [(n - 1 - j, row) for j, row in enumerate(scheme.right_rows)]
+        rows = [(j, row) for j, row in enumerate(scheme.left_rows) if first_block]
+        rows += [(n - 1 - j, row) for j, row in enumerate(scheme.right_rows) if last_block]
         for i, row in rows:
             a, b, c = row.lhs
             if i > 0:

@@ -12,9 +12,9 @@ script exits non-zero without printing the final line:
               nvidia-smi reports them; TF32 off for every float32 product.
 2. build    — nvcc builds kernels K1 (compact_lane), K2 (compact_strided),
               K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3), K6 (div_rhs), K7
-              (gradient_pair), K8 (d2_sum), K9 (lap_rhs) and K10 (curl_rhs)
-              for sm_90a from cfd_tpu_torch/csrc/, one nvcc per source, in
-              parallel.
+              (gradient_pair), K8 (d2_sum), K9 (lap_rhs), K10 (curl_rhs), K11
+              (lane_dist) and K12 (strided_dist) for sm_90a from
+              cfd_tpu_torch/csrc/, one nvcc per source, in parallel.
 3. kernels  — each kernel against its plain PyTorch version (dense
               operators, float64, on the same float32 inputs):
               K1/K2 at 256^3 for the four first- and the four
@@ -32,9 +32,16 @@ script exits non-zero without printing the final line:
               for the four d1 schemes, K8 for the four d2 schemes, K9 for
               the two periodic d2 schemes, K10 for the two periodic d1
               schemes and K2's acc mode for the two non-periodic d2
-              schemes, at 256^3 and at (40, 96, 200). Gate: max|err| <=
-              1e-5 * max|ref|, 5e-5 for second derivatives with closure
-              rows.
+              schemes, at 256^3 and at (40, 96, 200); K11 (x) and K12 (y, z),
+              with the interface update, on the 128^3 shards of 256^3 over
+              (2, 2, 2) (first and last), an interior shard of 256^3 over 4
+              and an interior ragged (40, 96, 200) shard, and K12 without it
+              on the flat 64-point lines of 256^3 over 4 (first, interior,
+              last), for a d1, a d2 and a filter scheme each periodic and
+              not. Gate: max|err| <= 1e-5 * max|ref|, 5e-5 for second
+              derivatives with closure rows; K11/K12 at the JAX dist
+              kernels' gates (2e-6; 2e-5 d2 with closures; 5e-6 periodic
+              filters, 1e-4 filters with closures).
 4. accuracy — dfdx of sin(x) against cos(x) (5e-4) and d2fdx2 of sin(x)
               against -sin(x) (2e-3), at 256^3; laplacian of (sin x + sin
               y + sin z) / 3 against minus itself on the periodic (K9) and
@@ -72,14 +79,36 @@ script exits non-zero without printing the final line:
               enstrophy (K10 + two K2 solves), dissipation (K7 + K2 per
               component) and energy_spectrum (cuFFT), gated against the
               float64 plain path (1e-5 of the scalars and of max E(k)).
-6. times    — CUDA-event medians at 256^3, in turns: each kernel against
+6. distributed paths — DistributedCompactSolver at 256^3 f32 on meshes
+              of shards all on this card, each path with its launch counts:
+              dfdx/dfdy/dfdz of sin x + sin y + sin z on (2, 2, 2) (SCHEME4,
+              SCHEME4_PERIODIC: K11, K12) against cos (5e-4) and against
+              the single-device K1/K2 result (1e-5 relative); phipsi
+              against substructuring (2e-6); dfdx with method="kernel" on
+              (1, 1, 4) (64-point shard lines: the generic route, K12 on
+              flat lines); the distributed gradient on (4, 1, 1) (K7 and
+              K12) against the single-device gradient (1e-5); filter_field
+              (1e-5) and the d2 derivatives (2e-3) on (2, 2, 2) against
+              their single-device counterparts; then 5 RK3 steps of
+              AdvectionDiffusion(Derivs.distributed(solver, d2_solver)) on
+              (2, 2, 2) (K11, K12) and (1, 2, 2) (K11, K12, K4) at nu =
+              1e-3 and 0.05, at the slices' gates, with launch counts.
+7. times    — CUDA-event medians at 256^3, in turns: each kernel against
               its plain float32 version (and a single PyTorch call where
               one computes the same function), K5 against three K3
               launches, K7 against K1 + K2, K8 against two d2 calls and a
               sum, the Laplacian's two routes and the fused curl against
               the single derivatives and sums they replace, a copy floor,
               the Poisson round trip, one projection, the diagnostics, and
-              the step of each configuration.
+              the step of each configuration; the distributed dfdx, dfdy,
+              dfdz on (2, 2, 2) whole and split into halo, faces, gather +
+              reduced solve and kernels, beside the single-device
+              derivative; K11 and K12 per launch on one shard against their
+              plain versions and one torch.matmul with the shard's dense
+              operator; the distributed step on (2, 2, 2) and (1, 2, 2) in
+              turns with the single-device fused step. Shards that share one
+              card measure the distributed algorithm's overhead, not its
+              scaling.
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -109,8 +138,13 @@ from cfd_tpu_torch.models import (
     taylor_green,
 )
 from cfd_tpu_torch.ops import (
-    _native, adv_lap, dense, lane, megastep, pair, poisson, spectra, strided, vec,
+    _native, adv_lap, dense, dist, lane, megastep, pair, poisson, spectra, strided, vec,
 )
+from cfd_tpu_torch.ops.rhs import closure_ghosts
+from cfd_tpu_torch.parallel import DistributedCompactSolver, Grid, make_mesh
+from cfd_tpu_torch.parallel import compact as pcompact
+from cfd_tpu_torch.parallel.dist_tables import shard_blocks
+from cfd_tpu_torch.parallel.fused import make_gradient_distributed
 from cfd_tpu_torch.utils import cuda_time_ms
 
 N = 256
@@ -255,6 +289,22 @@ KERNELS = {
         "source": "cfd_tpu_torch/csrc/curl_rhs.cu",
         "replaces": "cfd_tpu/ops/pallas_vec.py:429 (_curl_kernel)",
     },
+    "lane_dist": {
+        "source": "cfd_tpu_torch/csrc/lane_dist.cu",
+        "replaces": "cfd_tpu/ops/pallas_dist.py:93 (_lane_dist_kernel, d1); "
+        "cfd_tpu/ops/pallas_dist.py:216 (_lane_dist_fold_kernel, d2 and filters)",
+    },
+    "strided_dist": {
+        "source": "cfd_tpu_torch/csrc/strided_dist.cu",
+        "replaces": "cfd_tpu/ops/pallas_dist.py:152 (_sublane_dist_kernel, d1); "
+        "cfd_tpu/ops/pallas_dist.py:285 (_sublane_dist_fold_kernel, d2 and filters); "
+        "cfd_tpu/ops/pallas_leading.py:546 (_leading_kernel ext=True via _call_leading_dist)",
+    },
+    "strided_dist_lines": {
+        "source": "cfd_tpu_torch/csrc/strided_dist.cu",
+        "replaces": "cfd_tpu/ops/pallas_fused.py:78 (_fused_kernel via "
+        "solve_lines_tables_pallas)",
+    },
 }
 
 
@@ -270,7 +320,7 @@ def launch_counts() -> dict:
         "compact_lane_filter": lane.MODE_LAUNCHES["filter"],
         "compact_strided_filter": modes["filter"], "gradient_pair": pair.GRADIENT_LAUNCHES,
         "d2_sum": pair.D2_SUM_LAUNCHES, "lap_rhs": adv_lap.LAP_LAUNCHES,
-        "curl_rhs": vec.CURL_LAUNCHES,
+        "curl_rhs": vec.CURL_LAUNCHES, **dist.LAUNCHES,
     }
 
 
@@ -278,7 +328,7 @@ def zero_launch_counts() -> None:
     lane.LAUNCHES = strided.LAUNCHES = adv_lap.LAUNCHES = adv_lap.LAUNCHES3 = 0
     megastep.LAUNCHES = vec.LAUNCHES = pair.LAUNCHES = 0
     pair.GRADIENT_LAUNCHES = pair.D2_SUM_LAUNCHES = adv_lap.LAP_LAUNCHES = vec.CURL_LAUNCHES = 0
-    for modes in (lane.MODE_LAUNCHES, strided.MODE_LAUNCHES):
+    for modes in (lane.MODE_LAUNCHES, strided.MODE_LAUNCHES, dist.LAUNCHES):
         for mode in modes:
             modes[mode] = 0
 
@@ -540,6 +590,7 @@ def phase_kernels(dev) -> dict:
     # source shows as a change of its errors
     _derivative_cases(stats, failures, FILTERS, fields, g, dev)
     _slice4_cases(stats, failures, g, dev)
+    _slice5_cases(stats, failures, g, dev)
     if failures:
         raise AssertionError("kernel vs plain over the gate: " + "; ".join(failures))
     return stats
@@ -908,6 +959,416 @@ def phase_vector_calculus(dev) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Slice 5: the distributed layer, meshes of shards on this one card
+# ---------------------------------------------------------------------------
+
+# K11/K12 against plain float64: the gates the JAX dist kernels meet against
+# float64 (tests/test_dist_kernels.py): first derivatives and periodic second
+# derivatives 2e-6, second derivatives with closures 2e-5, periodic filters
+# 5e-6, filters with closures 1e-4.
+def _dist_gate(scheme) -> float:
+    if scheme.derivative_order == 0:
+        return 5e-6 if scheme.periodic else 1e-4
+    return 2e-5 if scheme.derivative_order == 2 and not scheme.periodic else 2e-6
+
+
+DIST_SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME4_D2, ct.SCHEME4_D2_PERIODIC,
+                ct.get_filter(6, 0.45, False), ct.get_filter(6, 0.45, True)]
+# phipsi against substructuring on the same float32 field sin x: the JAX
+# dryrun holds them at 5e-7 on the O(1) derivative at n = 64
+# (__graft_entry__.py:145-152); f32 rounding of the RHS grows as 1 / dx, so
+# 4x that at n = 256
+PHIPSI_GATE = 2e-6
+DIST_VS_SINGLE_GATE = 1e-5  # distributed against single-device, relative
+
+
+def _mesh(shape):
+    """A mesh of ``shape`` shards, every one on card 0."""
+    return make_mesh(shape, devices=[torch.device("cuda", 0)] * math.prod(shape))
+
+
+def _dist_inputs(g, dev, scheme, r, p, shape, axis):
+    """A shard block of ``shape`` (line along ``axis``), its halo rows
+    (random toward a neighbour, closure ghosts on a physical end) and its
+    interface weights, float32 on the card."""
+    rows = lambda k: shape[:axis] + (k,) + shape[axis + 1:]
+    w = scheme.stencil_width
+    f, hl, hr = (torch.randn(s, generator=g, device=dev) for s in (shape, rows(w), rows(w)))
+    ab = torch.randn(rows(2), generator=g, device=dev)
+    if not scheme.periodic and r in (0, p - 1):
+        gl, gr = closure_ghosts(f.double().movedim(axis, 0), scheme)
+        if r == 0:
+            hl = gl.movedim(0, axis).float().contiguous()
+        if r == p - 1:
+            hr = gr.movedim(0, axis).float().contiguous()
+    return f, hl, hr, ab
+
+
+# (label, p, r, shard shape, axis): the 128^3 shards of 256^3 on (2, 2, 2)
+# (first and last along each axis), an interior shard of 256^3 over 4, and a
+# ragged shard, interior, of a line over 3
+DIST_SHARDS = [
+    ("(2,2,2) first", 2, 0, (N // 2,) * 3),
+    ("(2,2,2) last", 2, 1, (N // 2,) * 3),
+    ("4 shards, interior", 4, 1, None),
+    ("ragged (40, 96, 200), 3 shards, interior", 3, 1, RAGGED),
+]
+
+
+def _slice5_cases(stats, failures, g, dev):
+    """K11 along x, K12 along y and z (with the interface update) and K12 on
+    the generic route's flat lines (without it), at the shard shapes the
+    distributed derivatives give them, against their plain float64 versions."""
+    d = 2 * math.pi / N
+    for scheme in DIST_SCHEMES:
+        gate = _dist_gate(scheme)
+        for label, p, r, shape in DIST_SHARDS:
+            for axis, kernel in ((2, "lane_dist"), (1, "strided_dist"), (0, "strided_dist")):
+                s = shape or tuple(N // 4 if a == axis else N for a in range(3))
+                block = shard_blocks(scheme, p * s[axis], p)[r]
+                f, hl, hr, ab = _dist_inputs(g, dev, scheme, r, p, s, axis)
+                d64 = lambda *ts: tuple(t.double() for t in ts)
+                case = f"{'xyz'[2 - axis]} {scheme.name} {label} {s}"
+                if axis == 2:
+                    got = dist.lane_dist_derivative(f, hl, hr, ab, d, block)
+                    ref = dist.lane_dist_derivative_ref(*d64(f, hl, hr, ab), d, block)
+                else:
+                    got = dist.sublane_dist_derivative(f, hl, hr, ab, d, block, axis=axis)
+                    ref = dist.sublane_dist_derivative_ref(*d64(f, hl, hr, ab), d, block,
+                                                           axis=axis)
+                _compare(stats, kernel, case, got, ref, failures, gate)
+                del f, hl, hr, ab, got, ref
+        # the generic route's local solve (row 8): the x lines of a 256^3
+        # field over 4 shards, moved to axis 0 and flattened
+        for r in (0, 1, 3):
+            block = shard_blocks(scheme, N, 4)[r]
+            f, hl, hr, _ = _dist_inputs(g, dev, scheme, r, 4, (N // 4, N * N), 0)
+            got = dist.solve_lines_tables(f, hl, hr, 1 / d, block)
+            ref = dist.solve_lines_tables_ref(f.double(), hl.double(), hr.double(), 1 / d, block)
+            _compare(stats, "strided_dist_lines", f"{scheme.name} shard {r} of 4 {tuple(f.shape)}",
+                     got, ref, failures, gate)
+
+
+def _sines(dev, dtype=torch.float32, x_only=False):
+    """F = sin x + sin y + sin z at 256^3 (built in float64, cast once), and
+    its exact first and second derivatives along (x, y, z), float64; with
+    ``x_only``, sin x alone."""
+    c = coordinates(N, device=dev, dtype=torch.float64)
+    Z, Y, X = c[:, None, None], c[None, :, None], c[None, None, :]
+    if x_only:
+        return torch.sin(X).expand(N, N, N).contiguous().to(dtype)
+    F = (torch.sin(X) + torch.sin(Y) + torch.sin(Z)).contiguous()
+    d1 = tuple(torch.cos(v).expand(N, N, N) for v in (X, Y, Z))
+    d2 = tuple(-torch.sin(v).expand(N, N, N) for v in (X, Y, Z))
+    return F.to(dtype), d1, d2
+
+
+def _solver(mesh_shape, scheme, method="auto"):
+    grid = Grid(_mesh(mesh_shape), (N, N, N), (2 * math.pi / N,) * 3, scheme)
+    return grid, DistributedCompactSolver(grid, method=method)
+
+
+def _run_path(fn):
+    """fn() with every launch count zeroed just before and read just after."""
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+# launches per path: one per shard and axis (K11 along x, K12 along y and z)
+DIST_PATHS = {
+    "slice5_d1_pade4": path(lane_dist=8, strided_dist=16),
+    "slice5_d1_pade4_periodic": path(lane_dist=8, strided_dist=16),
+    "slice5_lines_1x1x4": path(strided_dist_lines=4),
+    "slice5_gradient_4x1x1": path(gradient_pair=4, strided_dist=4),
+    "slice5_filter_field": path(lane_dist=8, strided_dist=16),
+    "slice5_d2_pade4_periodic": path(lane_dist=8, strided_dist=16),
+    "slice5_d2_pade4": path(lane_dist=8, strided_dist=16),
+    "slice5_phipsi": path(),  # dense products and collectives, no kernel
+}
+
+
+def phase_dist_paths(dev) -> dict:
+    """The distributed solver's entry points at 256^3 f32 on meshes of
+    shards on this card, each path with its launch counts: dfdx, dfdy, dfdz
+    on (2, 2, 2) (SCHEME4 and SCHEME4_PERIODIC: K11, K12) against cos and
+    against the single-device K1/K2 result; dfdx with method="kernel" on
+    (1, 1, 4), whose 64-point shard lines take the generic route (K12 on
+    flat lines); the distributed gradient on (4, 1, 1) (K7 per shard, K12
+    along z) against the single-device gradient; phipsi against
+    substructuring (SCHEME4); filter_field and the d2 derivatives on (2, 2,
+    2) against their single-device counterparts and -sin."""
+    dx = 2 * math.pi / N
+    F, d1, d2 = _sines(dev)
+    launches, failures = {}, []
+
+    def check(case, out, grid, want, gate, kind):
+        got = torch.from_numpy(grid.gather(out)).to(dev).double()
+        err = (got - want.double()).abs().max().item()
+        val = err / want.abs().max().item() if kind == "rel" else err
+        ok = val <= gate and bool(torch.isfinite(got).all().item())
+        emit({"phase": "dist_accuracy", "case": case, f"{kind}_err": val, "gate": gate,
+              "ok": ok})
+        if not ok:
+            failures.append(case)
+        return got
+
+    for name, scheme in (("slice5_d1_pade4", ct.SCHEME4),
+                         ("slice5_d1_pade4_periodic", ct.SCHEME4_PERIODIC)):
+        grid, solver = _solver((2, 2, 2), scheme)
+        Fs = grid.distribute(F)
+        outs, launches[name] = _run_path(lambda: [solver.apply(Fs, a) for a in (2, 1, 0)])
+        for axis, out in zip((2, 1, 0), outs):
+            case = f"d/d{'zyx'[axis]} (sin x + sin y + sin z) {scheme.name} (2,2,2) {N}^3 f32"
+            got = check(case + " vs cos", out, grid, d1[2 - axis], SIN_GATE, "abs")
+            check(case + " vs single-device K1/K2", out, grid,
+                  ct.derivative(F, dx, scheme, axis=axis - 3, method="kernel"),
+                  DIST_VS_SINGLE_GATE, "rel")
+        del Fs, outs
+
+    # phipsi against substructuring with the same ghost rows and RHS (the
+    # generic route, dense local solves), on sin x as in the JAX dryrun
+    grid, solver = _solver((2, 2, 2), ct.SCHEME4, "phipsi")
+    S = grid.distribute(_sines(dev, x_only=True))
+    phipsi, launches["slice5_phipsi"] = _run_path(lambda: solver.dfdx(S))
+    check(f"phipsi vs substructuring (method=matmul) dfdx sin x {ct.SCHEME4.name} (2,2,2) "
+          f"{N}^3 f32", phipsi, grid,
+          torch.from_numpy(grid.gather(DistributedCompactSolver(grid, method="matmul").dfdx(S)))
+          .to(dev), PHIPSI_GATE, "abs")
+    del S, phipsi
+
+    grid, solver = _solver((1, 1, 4), ct.SCHEME4, "kernel")
+    Fs = grid.distribute(F)
+    out, launches["slice5_lines_1x1x4"] = _run_path(lambda: solver.dfdx(Fs))
+    case = f"dfdx {ct.SCHEME4.name} (1,1,4) method=kernel, generic route, {N}^3 f32"
+    check(case + " vs cos", out, grid, d1[0], SIN_GATE, "abs")
+    check(case + " vs single-device K1", out, grid, ct.dfdx(F, dx, ct.SCHEME4),
+          DIST_VS_SINGLE_GATE, "rel")
+
+    grid, solver = _solver((4, 1, 1), ct.SCHEME4_PERIODIC)
+    Fs = grid.distribute(F)
+    gradient = make_gradient_distributed(solver)
+    outs, launches["slice5_gradient_4x1x1"] = _run_path(lambda: gradient(Fs))
+    for name, out, want in zip("xyz", outs, ct.gradient(F, dx, ct.SCHEME4_PERIODIC)):
+        check(f"gradient {name} {ct.SCHEME4_PERIODIC.name} (4,1,1) {N}^3 f32 vs single-device "
+              "gradient (K7 + K2)", out, grid, want, DIST_VS_SINGLE_GATE, "rel")
+
+    filt = ct.get_filter(6, 0.45, False)
+    grid, solver = _solver((2, 2, 2), filt)
+    Fs = grid.distribute(F)
+    out, launches["slice5_filter_field"] = _run_path(lambda: solver.filter_field(Fs))
+    check(f"filter_field {filt.name} (2,2,2) {N}^3 f32 vs single-device filter_field", out,
+          grid, ct.filter_field(F, filt), GATE, "rel")
+
+    # the d2 derivatives: periodic against -sin and the single-device K1/K2
+    # result (SIN2_GATE); with closures, where float32 input rounding through
+    # the wall rows alone moves f'' by ~1e-3 of max|f| (single-device K1/K2
+    # too), against the float64 operator on the same float32 input at the
+    # dist kernels' gate
+    F64 = F.double()
+    for name, scheme in (("slice5_d2_pade4_periodic", ct.SCHEME4_D2_PERIODIC),
+                         ("slice5_d2_pade4", ct.SCHEME4_D2)):
+        grid, solver = _solver((2, 2, 2), scheme)
+        Fs = grid.distribute(F)
+        outs, launches[name] = _run_path(lambda: [solver.apply(Fs, a) for a in (2, 1, 0)])
+        for axis, out in zip((2, 1, 0), outs):
+            case = f"d2/d{'zyx'[axis]}2 {scheme.name} (2,2,2) {N}^3 f32"
+            if scheme.periodic:
+                check(case + " vs -sin", out, grid, d2[2 - axis], SIN2_GATE, "abs")
+                check(case + " vs single-device K1/K2", out, grid,
+                      ct.derivative(F, dx, scheme, axis=axis - 3, method="kernel"), SIN2_GATE,
+                      "abs")
+            else:
+                check(case + " vs float64 plain operator", out, grid,
+                      ct.derivative(F64, dx, scheme, axis=axis - 3, method="matmul"),
+                      _dist_gate(scheme), "rel")
+                check(case + " vs single-device K1/K2", out, grid,
+                      ct.derivative(F, dx, scheme, axis=axis - 3, method="kernel"),
+                      _dist_gate(scheme), "rel")
+        del Fs, outs
+    for name, got in launches.items():
+        ok = got == DIST_PATHS[name]
+        emit({"phase": "dist_path", "path": name, "launches": got,
+              "launches_expected": DIST_PATHS[name], "ok": ok})
+        if not ok:
+            failures.append(f"{name} launches")
+    if failures:
+        raise AssertionError("distributed paths failed: " + "; ".join(failures))
+    return launches
+
+
+# 5 RK3 steps of the distributed model: per substep (2, 2, 2) runs fx and
+# d2x through K11 and fy, d2y, fz, d2z through K12, one launch per shard and
+# derivative; (1, 2, 2) runs fx, d2x (K11) and fy, d2y (K12) on 4 shards and
+# K4 per shard
+DIST_SLICES = {
+    # name: (mesh, nu, launches expected over STEPS steps)
+    "slice5_2x2x2": ((2, 2, 2), NU, path(lane_dist=16 * 3 * STEPS, strided_dist=32 * 3 * STEPS)),
+    "slice5_2x2x2_viscous": ((2, 2, 2), NU_VISCOUS,
+                             path(lane_dist=16 * 3 * STEPS, strided_dist=32 * 3 * STEPS)),
+    "slice5_1x2x2": ((1, 2, 2), NU, path(lane_dist=8 * 3 * STEPS, strided_dist=8 * 3 * STEPS,
+                                         rk3_mega=4 * 3 * STEPS)),
+    "slice5_1x2x2_viscous": ((1, 2, 2), NU_VISCOUS,
+                             path(lane_dist=8 * 3 * STEPS, strided_dist=8 * 3 * STEPS,
+                                  rk3_mega=4 * 3 * STEPS)),
+}
+
+
+def _dist_model(mesh_shape, nu):
+    grids = [Grid(_mesh(mesh_shape), (N, N, N), (2 * math.pi / N,) * 3, s)
+             for s in (ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC)]
+    derivs = Derivs.distributed(*(DistributedCompactSolver(g) for g in grids))
+    return grids[0], AdvectionDiffusion(derivs, nu=nu)
+
+
+_REFS = {}
+
+
+def phase_dist_slice(dev, name) -> dict:
+    """5 RK3 steps of AdvectionDiffusion(Derivs.distributed(solver,
+    d2_solver)) at 256^3 f32 on a mesh of shards on this card, against the
+    same steps of the single-device model on the plain float64 path."""
+    mesh_shape, nu, want = DIST_SLICES[name]
+    grid, model = _dist_model(mesh_shape, nu)
+    fused = model.derivs.fused_substep is not None
+    if nu not in _REFS:  # the reference of both meshes at this viscosity
+        ref_model, f0_64, u_64 = _model(dev, ct.SCHEME4_PERIODIC, "matmul", torch.float64,
+                                        True, nu)
+        _REFS[nu] = (f0_64, u_64, ref_model.run(f0_64, u_64, DT, STEPS))
+    f0_64, u_64, f_ref = _REFS[nu]
+    fs = grid.distribute(f0_64.float())
+    us = tuple(grid.distribute(c.float()) for c in u_64)
+    t0 = time.perf_counter()
+    out, launches = _run_path(lambda: model.run(fs, us, DT, STEPS))
+    wall = time.perf_counter() - t0
+    f = torch.from_numpy(grid.gather(out)).to(dev)
+    err = (f.double() - f_ref).abs().max().item()
+    rel = err / f_ref.abs().max().item()
+    rel_inc = err / (f_ref - f0_64).abs().max().item()
+    finite = bool(torch.isfinite(f).all().item())
+    ok = (finite and f.shape == (N, N, N) and f.dtype == torch.float32 and fused
+          and rel <= SLICE_GATE and rel_inc <= INC_GATE and launches == want)
+    emit({"phase": "slice", "slice": name,
+          "case": f"AdvectionDiffusion(Derivs.distributed) {ct.SCHEME4_PERIODIC.name} + "
+          f"{ct.SCHEME4_D2_PERIODIC.name} mesh {mesh_shape} on one card, {N}^3 f32, "
+          f"{STEPS} RK3 steps dt={DT} nu={nu}", "fused_substep": fused,
+          "max_abs_err_vs_f64_plain": err, "rel_err": rel, "gate": SLICE_GATE,
+          "rel_err_of_increment": rel_inc, "increment_gate": INC_GATE, "finite": finite,
+          "launches": launches, "launches_expected": want, "wall_s_incl_first_calls": wall,
+          "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} failed: see its slice line")
+    return launches
+
+
+def _shard_operator(block, dx, with_ab=True):
+    """The dense float64 operator of one shard's solve over its extended
+    input [hl; f; hr (; a; b)]: T_r^{-1} B_ext / dx**order (and the unit
+    loads), (nl, nl + 2w (+ 2)): the library call's matrix."""
+    scheme = block.scheme
+    nl, w = block.nl, scheme.stencil_width
+    eye = torch.eye(nl + 2 * w, dtype=torch.float64)
+    cols = [dist.solve_lines_tables_ref(eye[w:w + nl], eye[:w], eye[w + nl:], 1 / dx, block)]
+    if with_ab:
+        cols += [torch.from_numpy(block.suh)[:, None], torch.from_numpy(block.slh)[:, None]]
+    return torch.cat(cols, 1)
+
+
+def _dist_kernel_times(times, g, dev) -> None:
+    """K11 and K12 per launch on one 128^3 shard of 256^3 over (2, 2, 2)
+    (SCHEME4_PERIODIC), K12 on the flat lines of one shard of 256^3 over (1,
+    1, 4), each in turns with its plain float32 version, and the library
+    call: one torch.matmul with the shard's dense operator over the extended
+    input (halos and interface weights concatenated)."""
+    d = 2 * math.pi / N
+    scheme = ct.SCHEME4_PERIODIC
+    block = shard_blocks(scheme, N, 2)[0]
+    s = (N // 2,) * 3
+    M = _shard_operator(block, d).to(dev, torch.float32)
+    for key, axis in (("lane_dist", 2), ("strided_dist_y", 1), ("strided_dist_z", 0)):
+        f, hl, hr, ab = _dist_inputs(g, dev, scheme, 0, 2, s, axis)
+        ext = torch.cat([hl, f, hr, ab], axis)
+        if axis == 2:
+            plain = lambda: dist.lane_dist_derivative_ref(f, hl, hr, ab, d, block)
+            kernel = lambda: dist.lane_dist_derivative(f, hl, hr, ab, d, block)
+            lib = lambda: torch.matmul(ext, M.T)
+        else:
+            plain = lambda: dist.sublane_dist_derivative_ref(f, hl, hr, ab, d, block, axis=axis)
+            kernel = lambda: dist.sublane_dist_derivative(f, hl, hr, ab, d, block, axis=axis)
+            flat = ext.view(ext.shape[0], -1) if axis == 0 else ext
+            lib = lambda: torch.matmul(M, flat)
+        times[key] = _turns(plain, kernel)
+        times[key]["library_ms"] = cuda_time_ms(lib)
+        times[key]["bytes"] = 4 * (2 * f.numel() + hl.numel() + hr.numel() + ab.numel())
+        times[key]["points"] = f.numel()
+        times[key]["shape"] = list(s)
+    block = shard_blocks(scheme, N, 4)[1]
+    f, hl, hr, _ = _dist_inputs(g, dev, scheme, 1, 4, (N // 4, N * N), 0)
+    ext = torch.cat([hl, f, hr])
+    M = _shard_operator(block, d, with_ab=False).to(dev, torch.float32)
+    times["strided_dist_lines"] = _turns(
+        lambda: dist.solve_lines_tables_ref(f, hl, hr, 1 / d, block),
+        lambda: dist.solve_lines_tables(f, hl, hr, 1 / d, block))
+    times["strided_dist_lines"]["library_ms"] = cuda_time_ms(lambda: torch.matmul(M, ext))
+    times["strided_dist_lines"]["bytes"] = 4 * (2 * f.numel() + hl.numel() + hr.numel())
+    times["strided_dist_lines"]["points"] = f.numel()
+    times["strided_dist_lines"]["shape"] = list(f.shape)
+
+
+def phase_dist_times(dev, smi) -> dict:
+    """CUDA-event medians at 256^3 f32: the distributed dfdx, dfdy, dfdz on
+    (2, 2, 2) (SCHEME4_PERIODIC) whole and split into halo, faces, gather +
+    reduced solve and kernels, beside the single-device derivative; K11 and
+    K12 per launch; the distributed step on (2, 2, 2) and (1, 2, 2) in turns
+    with the single-device fused step. Eight (four) shards on one card
+    measure the distributed algorithm's overhead, not its scaling."""
+    g = torch.Generator(device=dev).manual_seed(20261019)
+    dx = 2 * math.pi / N
+    scheme = ct.SCHEME4_PERIODIC
+    times = {}
+    grid, solver = _solver((2, 2, 2), scheme)
+    F = torch.randn((N, N, N), generator=g, device=dev)
+    Fs = grid.distribute(F)
+    kw = dict(scheme=scheme, n=N, p=2, inv_dx=1 / dx)
+    for axis, name in ((2, "dfdx"), (1, "dfdy"), (0, "dfdz")):
+        left, right = pcompact._halo_ghosts(Fs, scheme=scheme, axis=axis, p=2, dim=axis - 3)
+        faces = pcompact._dist_faces(Fs, left, right, axis, **kw)
+        rinv = pcompact.shard_kernel_tables(scheme, N, 2).rinv_rows
+        ab = pcompact._reduced_from_faces(*faces, rinv, scheme=scheme, axis=axis, p=2)
+        times[f"dist_{name}"] = {
+            "total_ms": cuda_time_ms(lambda: solver.apply(Fs, axis)),
+            "halo_ms": cuda_time_ms(lambda: pcompact._halo_ghosts(
+                Fs, scheme=scheme, axis=axis, p=2, dim=axis - 3)),
+            "faces_ms": cuda_time_ms(lambda: pcompact._dist_faces(Fs, left, right, axis, **kw)),
+            "gather_reduced_ms": cuda_time_ms(lambda: pcompact._reduced_from_faces(
+                *faces, rinv, scheme=scheme, axis=axis, p=2)),
+            "kernels_ms": cuda_time_ms(lambda: pcompact._dist_kernels(
+                Fs, left, right, ab, axis, **kw)),
+            "single_device_ms": cuda_time_ms(
+                lambda: ct.derivative(F, dx, scheme, axis=axis - 3, method="kernel")),
+        }
+    del Fs, left, right, faces, ab
+    _dist_kernel_times(times, g, dev)
+
+    model, f0, u = _model(dev, scheme, "auto", torch.float32, True)
+    single = lambda: model.step(f0, u, DT)
+    steps = {}
+    for mesh_shape in ((2, 2, 2), (1, 2, 2)):
+        grid, dmodel = _dist_model(mesh_shape, NU)
+        fs, us = grid.distribute(f0), tuple(grid.distribute(c) for c in u)
+        t = _turns(single, lambda: dmodel.step(fs, us, DT))
+        steps["x".join(map(str, mesh_shape))] = {
+            "dist_step_ms": t["kernel_ms"], "single_device_fused_step_ms": t["plain_ms"],
+            "readings_ms": [t["kernel_readings_ms"], t["plain_readings_ms"]]}
+    emit({"phase": "dist_times", "device": smi, "shape": [N, N, N], "dtype": "float32",
+          "scheme": scheme.name, **times, "steps": steps,
+          "note": "shards share one card: the distributed algorithm's overhead, not scaling"})
+    return times
+
+
 def _turns(plain, kernel) -> dict:
     """CUDA-event medians in turns (plain, kernel, kernel, plain), averaged."""
     p1 = cuda_time_ms(plain)
@@ -931,16 +1392,21 @@ def _library_ms(f, scheme, dx, axis) -> float:
     return cuda_time_ms(lambda: torch.matmul(a, b))
 
 
-def _z_library_ms(M, f, acc=None) -> float:
-    """One PyTorch call with the dense (n, n) float64 matrix M along z of f:
-    torch.matmul, or torch.addmm adding acc (timed here only)."""
+def _z_library_ms(M, f, acc=None, mul=None) -> float:
+    """The PyTorch library calls with the dense (n, n) float64 matrix M along
+    z of f (timed here only): torch.matmul; torch.addmm adding acc; with mul
+    too, torch.addcmul(acc, mul, torch.matmul(M, f)), two calls, since no
+    one call forms mul * (M f) + acc."""
     n = f.shape[0]
     a = torch.as_tensor(M, dtype=f.dtype, device=f.device)
     b = f.view(n, -1)
     if acc is None:
         return cuda_time_ms(lambda: torch.matmul(a, b))
     c = acc.view(n, -1)
-    return cuda_time_ms(lambda: torch.addmm(c, a, b))
+    if mul is None:
+        return cuda_time_ms(lambda: torch.addmm(c, a, b))
+    m = mul.view(n, -1)
+    return cuda_time_ms(lambda: torch.addcmul(c, m, torch.matmul(a, b)))
 
 
 def _slice3_times(times, f, g, dev) -> None:
@@ -961,6 +1427,8 @@ def _slice3_times(times, f, g, dev) -> None:
     times["compact_strided_mul"] = _turns(
         lambda: strided.strided_derivative_ref(f, dx, s1, 0, acc=a, mul=m),
         lambda: strided.strided_derivative(f, dx, s1, 0, acc=a, mul=m))
+    times["compact_strided_mul"]["library_ms"] = _z_library_ms(
+        dense.dense_operator(s1, N) / dx, f, acc=a, mul=m)
     times["pair_subtract"] = _turns(lambda: pair.pair_subtract_ref(f, a, m, dx, dx, s1),
                                     lambda: pair.pair_subtract(f, a, m, dx, dx, s1))
     times["div_rhs"] = _turns(lambda: vec.div_rhs_ref(f, a, m, dx, dx, dx, s1),
@@ -1126,7 +1594,7 @@ def phase_times(dev, smi) -> dict:
     return {**times, "copy_floor_ms": copy_ms}
 
 
-def _summary(stats, launches, times) -> list:
+def _summary(stats, launches, times, dist_times) -> list:
     pts = N**3
     copy_rate = 2 * 4 * pts / (times["copy_floor_ms"] * 1e-3)  # bytes/s, this run
     timed = {
@@ -1161,6 +1629,29 @@ def _summary(stats, launches, times) -> list:
             "library_ms": sum(lib) / len(lib) if lib else None,
             "timed": [f"{k} {N}^3 f32" for k in keys],
         })
+    # the shard-local kernels: per launch on one shard of 256^3 (K12 along
+    # y and z averaged), bound by the shard's least bytes (f, halos and
+    # weights read once, f' written once; ~26 flops a point as K1/K2)
+    for name, keys in (("lane_dist", ("lane_dist",)),
+                       ("strided_dist", ("strided_dist_y", "strided_dist_z")),
+                       ("strided_dist_lines", ("strided_dist_lines",))):
+        mean = lambda field: sum(dist_times[k][field] for k in keys) / len(keys)
+        byte_ms = mean("bytes") / MEM_BYTES_PER_S * 1e3
+        op_ms = 26 * mean("points") / F32_FLOPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": sum(by_path[name] for by_path in launches.values()),
+            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()
+                                 if by_path[name]},
+            "max_abs_err": stats[name]["max_abs_err"],
+            "max_rel_err": stats[name]["max_rel_err"],
+            "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "copy_bound_ms": mean("bytes") / copy_rate * 1e3,
+            "library_ms": mean("library_ms"),
+            "timed": [f"{k} per launch, shard {dist_times[k]['shape']} f32" for k in keys],
+        })
     return rows
 
 
@@ -1174,10 +1665,13 @@ def main() -> None:
     launches.update({name: phase_velocity_slice(dev, name) for name in VELOCITY_SLICES})
     launches["slice4_vector_calculus"] = phase_vector_calculus(dev)
     launches["slice4_diagnostics"] = phase_diagnostics(dev)
+    launches.update(phase_dist_paths(dev))
+    launches.update({name: phase_dist_slice(dev, name) for name in DIST_SLICES})
     times = phase_times(dev, smi)
+    dist_times = phase_dist_times(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    emit({"kernels": _summary(stats, launches, times)})
+    emit({"kernels": _summary(stats, launches, times, dist_times)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

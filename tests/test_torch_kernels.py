@@ -204,7 +204,7 @@ def test_d2_walls_on_smooth_benchmark_field_within_gate(scheme):
 def test_coef_struct_layout():
     """The ctypes struct carries each table into the C layout unchanged."""
     coef, _ = _native.kernel_tables(ct.SCHEME6, 32)
-    c = _native._fill(coef, 4.0)
+    c = _native.fill_coef(coef, 4.0)
     assert ctypes.sizeof(c) == 4 * (6 + 3 + 6 + 2 * (3 * 8 + 3))
     assert (c.n, c.K, c.periodic, c.n_rows, c.n_taps, c.diff2) == (32, 2, 0, 2, 6, 0)
     raw = np.frombuffer(bytes(c), np.float32)

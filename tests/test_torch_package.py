@@ -37,7 +37,9 @@ def test_import_loads_no_jax():
         "import cfd_tpu_torch.utils, cfd_tpu_torch.ops._native\n"
         "import cfd_tpu_torch.ops.adv_lap, cfd_tpu_torch.ops.megastep, cfd_tpu_torch.ops.fused_step\n"
         "import cfd_tpu_torch.ops.vec, cfd_tpu_torch.ops.pair, cfd_tpu_torch.ops.poisson\n"
-        "import cfd_tpu_torch.ops.spectra\n"
+        "import cfd_tpu_torch.ops.spectra, cfd_tpu_torch.ops.dist, cfd_tpu_torch.ops.rhs\n"
+        "import cfd_tpu_torch.parallel, cfd_tpu_torch.parallel.fused, cfd_tpu_torch.parallel.phipsi\n"
+        "import cfd_tpu_torch.oracle.lanl\n"
         "import cfd_tpu_torch.models.burgers, cfd_tpu_torch.models.navier_stokes\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfd_tpu.'))))"
     )
