@@ -1,6 +1,6 @@
 // The right-hand sides that move T_z through the xy derivatives, shared by
 // K3 (adv_lap.cu), K5 (adv_lap3.cu), K6 (div_rhs.cu), K8 (d2_sum.cu), K9
-// (lap_rhs.cu) and K10 (curl_rhs.cu). For a float32 (nz, ny, nx) field and
+// (lap_rhs.cu), K10 (curl_rhs.cu) and K13 (adv_pair.cu). For a float32 (nz, ny, nx) field and
 // a periodic scheme with z operators T_z (LHS) and B_z / dz**order (RHS),
 // each "family" writes one output, of one of three kinds:
 //
@@ -23,10 +23,14 @@
 //   K8  s = D2x f + D2y f                 (weighted, no z: the xy Laplacian)
 //   K10 wz = D1x uy - D1y ux;  rA = T_z (D1y uz) - B_z uy;
 //       rB = B_z ux - T_z (D1x uz)                    (weighted: the curl)
+//   K13 axy = ux Dx f + uy Dy f          (advection alone: no z work at all)
 //
-// A launch is either of the first two kinds (`weighted` = 0) or weighted
-// throughout; the weighted kind has kernels of its own, so K3, K5 and K6
-// compile to the same code as before it existed.
+// A launch is of the first two kinds (`weighted` = 0), weighted throughout,
+// or, unpaired, advection throughout; the weighted and the advection-only
+// kinds have x kernels of their own, so K3, K5 and K6 compile to the same
+// code as before they existed. An advection-only launch stages one x-line
+// per line, so it takes x-lines up to 48 KB (nx <= 12278), where a paired
+// launch takes two (nx <= 6134).
 //
 // A 256^2 plane (256 KB) does not fit one block's 227 KB of shared memory,
 // so a launch is two kernels on one stream:
@@ -163,22 +167,28 @@ __device__ __forceinline__ void xy_y_column(const XYArgs& a, const XYFamily& F, 
   const long long plane = ny * nx;
   const long long p = col / nx;
   const long long base = p * plane + (col - p * nx);
-  const TzRow tz(a.zt, p, plane);
-  auto src = [&](int m) {
-    if (m >= ny) {
-      if (!c.periodic) return 0.f;
-      m %= ny;
-    }
-    const long long e = base + m * nx;
-    return RHS ? tz.at(F.sy, e) : __ldg(F.sy + e);
-  };
-  if (RHS) {
+  if constexpr (RHS) {
+    const TzRow tz(a.zt, p, plane);
+    auto src = [&](int m) {
+      if (m >= ny) {
+        if (!c.periodic) return 0.f;
+        m %= ny;
+      }
+      return tz.at(F.sy, base + m * nx);
+    };
     const BzRow bz(a.zt, p, plane);
     solve_line(c, a.taby[F.d2], src, F.out + base, nx, [&](int i, float v) {
       const long long e = base + i * nx;
       F.out[e] = v + bz.at(F.bz, e);
     });
-  } else {
+  } else {  // an advection family reads no z table (K13 passes none)
+    auto src = [&](int m) {
+      if (m >= ny) {
+        if (!c.periodic) return 0.f;
+        m %= ny;
+      }
+      return __ldg(F.sy + base + m * nx);
+    };
     solve_line(c, a.taby[F.d2], src, F.out + base, nx, [&](int i, float v) {
       const long long e = base + i * nx;
       F.out[e] = __ldg(F.my + e) * v;
@@ -313,6 +323,39 @@ __global__ void __launch_bounds__(XY_Y_THREADS, 8) xyw_y_kernel(const __grid_con
   }
 }
 
+// The advection-only x phase (K13): a block stages consecutive x-lines of
+// one family's sx, warp 0 solves them in place, and the block adds mx times
+// them into the family's output.
+__global__ void xya_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
+  extern __shared__ float tile[];
+  const XYFamily& F = a.fam[blockIdx.y];
+  const int n = a.cx[0].n;
+  const int ld = cfd_line_ld(n);
+  const long long lines = (long long)a.zt.nz * a.cy[0].n;
+  const long long line0 = (long long)blockIdx.x * lines_per_block;
+  const long long rest = lines - line0;
+  const int nl = rest < lines_per_block ? (int)rest : lines_per_block;
+  const int count = nl * n;
+  const long long e_base = line0 * n;
+
+  float* const tiles[1] = {tile};
+  stage_lines(tiles, count, n, [&](int e, float* v) { v[0] = __ldg(F.sx + e_base + e); });
+  __syncthreads();
+
+  if (threadIdx.x < nl) {
+    float* line = tile + threadIdx.x * ld;
+    wrap_line(line, n);
+    solve_line(a.cx[F.d2], a.tabx[F.d2], [&](int m) { return line[m]; }, line, 1);
+  }
+  __syncthreads();
+
+  for (int e = threadIdx.x; e < count; e += blockDim.x) {
+    const int l = e / n;
+    const long long g = e_base + e;
+    F.out[g] += __ldg(F.mx + g) * tile[l * ld + (e - l * n)];
+  }
+}
+
 // The weighted x phase: a block stages consecutive x-lines of Z sx for one
 // family with an x term, warp 0 solves them in place, and the block adds wx
 // times them into the family's output.
@@ -396,17 +439,24 @@ __host__ inline int xyw_launch(XYArgs a, cudaStream_t s) {
 
 // Both phases of `a` on `stream`. Families, line lengths or a z width the
 // kernels do not take, and x lines past 48 KB, return cudaErrorInvalidValue.
+// An unpaired launch whose first family is an advection family is an
+// advection-only launch: every family must be one, and none reads a z table.
 __host__ inline int xy_launch(const XYArgs& a, void* stream) {
   const int ny = a.cy[0].n, nx = a.cx[0].n;
   bool ok = a.nfam >= 1 && a.nfam <= XY_MAX_FAMILIES && a.cy[1].n == ny && a.cx[1].n == nx &&
             a.zt.W >= 0 && a.zt.W <= CFD_MAX_K && a.zt.nz >= 1 && (!a.paired || a.nfam % 2 == 0) &&
             !(a.paired && a.weighted);
+  const bool advection = ok && !a.paired && !a.weighted && !a.fam[0].rhs;
   for (int k = 0; ok && k < a.nfam; ++k) {
     const XYFamily& F = a.fam[k];
     if (a.weighted) {
       // every output point is written by the y phase: a y term or B_z
       ok = (F.wy != 0.f || F.tz) && (F.wy == 0.f || F.sy) && (F.wx == 0.f || F.sx) &&
            (!F.tz || (F.bz && F.wb != 0.f && a.zt.bt && a.zt.tt));
+      continue;
+    }
+    if (advection) {
+      ok = !F.rhs && F.sy && F.sx && F.my && F.mx;
       continue;
     }
     const bool rhs = !a.paired || k % 2 == 1;
@@ -433,7 +483,9 @@ __host__ inline int xy_launch(const XYArgs& a, void* stream) {
   const long long lines = (long long)a.zt.nz * ny;
   const dim3 xgrid((unsigned)((lines + per_block - 1) / per_block), a.nfam / tiles);
   const size_t smem = tiles * per_block * line_bytes;
-  if (a.paired) {
+  if (advection) {
+    xya_x_kernel<<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
+  } else if (a.paired) {
     xy_x_kernel<true><<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
   } else {
     xy_x_kernel<false><<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);

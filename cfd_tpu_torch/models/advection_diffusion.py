@@ -12,7 +12,10 @@ second-derivative ``laplacian`` when the ``Derivs`` bundle carries one
 substeps x (3 first derivatives + the diffusion term) plus PyTorch's
 elementwise tail. With a periodic d2 scheme and ``method="auto"`` the
 bundle also carries the fused substep (``ops/fused_step.py``): two kernels
-per substep, K3 and K4, and no elementwise passes. ``Derivs.distributed``
+per substep, K3 and K4, and no elementwise passes; on x-lines too long for
+K3 (6135 <= nx <= 12278) three, K13 + K9 + K4. Where no fused head takes
+the field, the substep returns None and the step runs its generic form, as
+the JAX model does. ``Derivs.distributed``
 runs the same model on fields split over a device mesh
 (``parallel.Sharded``), with the distributed fused substep
 (``parallel/fused.py``).
@@ -51,6 +54,8 @@ class Derivs:
     its generic form. ``fused_substep_vec``, when set, is
     ``(u, q, dt, nu, a, b, last) -> (q', u')``, one momentum stage of all
     three components of a velocity, which Burgers and Navier–Stokes prefer.
+    Either returns None for a field its kernels do not take; the model then
+    takes its next form, decided on the first call of each step.
     """
 
     dfdx: Callable
@@ -150,12 +155,16 @@ class AdvectionDiffusion(nn.Module):
         ``parallel.Sharded`` with a distributed bundle."""
         fs = self.derivs.fused_substep
         if fs is not None:
-            q = None  # the first substep has no q (a == 0)
-            last = len(RK3_A) - 1
-            for i, (a, b) in enumerate(zip(RK3_A, RK3_B)):
-                # q' is dead after the last substep: K4 skips writing it
-                q, f = fs(f, u, q, dt, self.nu, a, b, last=i == last)
-            return f
+            # the first substep has no q (a == 0); a None result says that
+            # no fused head takes f: the generic form below runs instead
+            out = fs(f, u, None, dt, self.nu, RK3_A[0], RK3_B[0])
+            if out is not None:
+                q, fc = out
+                last = len(RK3_A) - 1
+                for i in range(1, last + 1):
+                    # q' is dead after the last substep: the tail skips it
+                    q, fc = fs(fc, u, q, dt, self.nu, RK3_A[i], RK3_B[i], last=i == last)
+                return fc
         q = None  # the first substep has no q (a == 0)
         for a, b in zip(RK3_A, RK3_B):
             q = dt * self.rhs(f, u) if q is None else a * q + dt * self.rhs(f, u)

@@ -6,13 +6,16 @@ The port of ``cfd_tpu/models/burgers.py``. It advances
 
 for a 3-component velocity with low-storage RK3, every spatial derivative a
 compact derivative of this package. The advecting field is the solution
-itself, frozen within a stage. A stage takes the first route its ``Derivs``
-bundle carries:
+itself, frozen within a stage. A step takes the first route its ``Derivs``
+bundle carries that takes the velocity (a fused substep returns None for a
+field its kernels do not take; the first call of the step decides, as in
+the JAX model):
 
 1. ``fused_substep_vec``: K5 for the three components, then K4 for each
    (4 launches a stage);
-2. ``fused_substep``: one scalar fused substep (K3 + K4) per component,
-   advected by the stage-start velocity;
+2. ``fused_substep``: one scalar fused substep (K3 + K4, or on x-lines too
+   long for K3 and K5, K13 + K9 + K4) per component, advected by the
+   stage-start velocity;
 3. the generic form: ``rhs`` from the bundle's gradient and Laplacian, then
    the RK update in PyTorch.
 
@@ -60,21 +63,29 @@ class Burgers(nn.Module):
         stage (Navier–Stokes passes its projection)."""
         d = self.derivs
         last = len(RK3_A) - 1
-        if d.fused_substep_vec is not None:
-            q = None
-            for si, (a, b) in enumerate(zip(RK3_A, RK3_B)):
+        fsv = d.fused_substep_vec
+        first = fsv(u, None, dt, self.nu, RK3_A[0], RK3_B[0]) if fsv is not None else None
+        if first is not None:
+            q, u = first
+            u = after_stage(u)
+            for si in range(1, last + 1):
                 # q' is dead after the last stage: K4 skips writing it
-                q, u = d.fused_substep_vec(u, q, dt, self.nu, a, b, last=si == last)
+                q, u = fsv(u, q, dt, self.nu, RK3_A[si], RK3_B[si], last=si == last)
                 u = after_stage(u)
             return tuple(u)
-        if d.fused_substep is not None:
+        fs = d.fused_substep
+        first = fs(u[0], u, None, dt, self.nu, RK3_A[0], RK3_B[0]) if fs is not None else None
+        if first is not None:
             q = [None, None, None]
             for si, (a, b) in enumerate(zip(RK3_A, RK3_B)):
                 frozen = tuple(u)
                 cur = []
                 for i in range(3):
-                    q[i], ui = d.fused_substep(frozen[i], frozen, q[i], dt, self.nu, a, b,
-                                               last=si == last)
+                    if si == 0 and i == 0:
+                        q[0], ui = first
+                    else:
+                        q[i], ui = fs(frozen[i], frozen, q[i], dt, self.nu, a, b,
+                                      last=si == last)
                     cur.append(ui)
                 u = after_stage(tuple(cur))
             return tuple(u)

@@ -15,7 +15,8 @@ rounding: after every stage, ``divergence(u)`` is zero to rounding.
 On a CUDA float32 (nz, ny, nx) field with ``method="auto"`` a step is
 three times: K5, K4 for each component, then the compact projection (K6
 and K2's solve for the divergence, the FFT Poisson solve, ``pair_subtract``
-and K2 with ``acc`` for ``u - grad phi``).
+and K2 with ``acc`` for ``u - grad phi``). On x-lines too long for K5
+(6135 <= nx <= 12278) each component's stage is K13 + K9 + K4 instead.
 """
 
 from __future__ import annotations

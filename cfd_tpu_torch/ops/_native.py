@@ -39,6 +39,7 @@ __all__ = [
     "fill_coef",
     "kernel_tables",
     "launch_tables",
+    "x_lines_fit",
     "xy_planes_fit",
 ]
 
@@ -48,7 +49,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu",
     "adv_lap3.cu", "div_rhs.cu", "pair.cu", "d2_sum.cu", "lap_rhs.cu", "curl_rhs.cu",
-    "lane_dist.cu", "strided_dist.cu",
+    "lane_dist.cu", "strided_dist.cu", "adv_pair.cu",
 )
 HEADERS = ("compact_common.cuh", "xy_phase.cuh", "dist_common.cuh")
 NVCC_FLAGS = (
@@ -58,7 +59,7 @@ NVCC_FLAGS = (
 
 MAX_K, MAX_ROWS, MAX_TAPS = 3, 3, 8
 AHEAD = 8  # CFD_AHEAD: the rows a line's read-ahead holds (compact_common.cuh)
-X_BLOCK_BYTES = 48 * 1024  # what an x block of K7-K10 stages (pair.cu, xy_phase.cuh)
+X_BLOCK_BYTES = 48 * 1024  # what an x block of K3, K5-K10, K13 stages (pair.cu, xy_phase.cuh)
 
 
 class Coef(ctypes.Structure):
@@ -147,6 +148,9 @@ def library() -> ctypes.CDLL:
     lib.cfd_compact_lane.restype = i32
     lib.cfd_compact_strided.argtypes = [p, p, p, coef, p, p, i32, i64, i64, p]
     lib.cfd_compact_strided.restype = i32
+    f32 = ctypes.c_float
+    lib.cfd_strided_rk.argtypes = [p] * 7 + [coef] + [f32] * 4 + [i64, i64, p]
+    lib.cfd_strided_rk.restype = i32
     lib.cfd_adv_lap.argtypes = [p] * 11 + [coef] * 4 + [i32, i32, p]
     lib.cfd_adv_lap.restype = i32
     lib.cfd_adv_lap3.argtypes = [p] * 15 + [coef] * 4 + [i32, i32, p]
@@ -161,13 +165,14 @@ def library() -> ctypes.CDLL:
     lib.cfd_lap_rhs.restype = i32
     lib.cfd_curl_rhs.argtypes = [p] * 10 + [coef] * 2 + [i32, i32, p]
     lib.cfd_curl_rhs.restype = i32
-    f32 = ctypes.c_float
     lib.cfd_rk3_mega.argtypes = [p] * 9 + [coef, coef, f32, f32, f32, f32, i32, i64, p]
     lib.cfd_rk3_mega.restype = i32
     lib.cfd_lane_dist.argtypes = [p] * 6 + [coef, i64, i32, i32, p]
     lib.cfd_lane_dist.restype = i32
     lib.cfd_strided_dist.argtypes = [p] * 6 + [coef, i64, i64, i32, i32, p]
     lib.cfd_strided_dist.restype = i32
+    lib.cfd_adv_pair.argtypes = [p] * 6 + [coef] * 2 + [i32, p]
+    lib.cfd_adv_pair.restype = i32
     return lib
 
 
@@ -188,13 +193,19 @@ def check_order(scheme: CompactScheme) -> None:
         )
 
 
+def x_lines_fit(nx: int, tiles: int = 1) -> bool:
+    """Whether ``tiles`` staged x-lines of ``nx`` floats, each with its wrap
+    slots (``cfd_line_ld``), fit the shared memory an x block stages: the
+    test ``xy_launch`` (``csrc/xy_phase.cuh``) and K7 make before they
+    launch. A paired launch (K3, K5) stages two tiles, every other one."""
+    return tiles * 4 * ((nx + AHEAD + 1) | 1) <= X_BLOCK_BYTES
+
+
 def xy_planes_fit(scheme: CompactScheme, ny: int, nx: int) -> bool:
-    """Whether K7-K10 take (ny, nx) planes for ``scheme``: both lines at
-    least the scheme's ``min_points``, and one x-line of ``nx`` floats, with
-    its wrap slots (``cfd_line_ld``), within the shared memory an x block
-    stages."""
-    return (min(ny, nx) >= scheme.min_points()
-            and 4 * ((nx + AHEAD + 1) | 1) <= X_BLOCK_BYTES)
+    """Whether K7-K10 and K13 take (ny, nx) planes for ``scheme``: both
+    lines at least the scheme's ``min_points``, and one staged x-line within
+    an x block's shared memory (``x_lines_fit``)."""
+    return min(ny, nx) >= scheme.min_points() and x_lines_fit(nx)
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor) -> None:

@@ -26,6 +26,11 @@ z stencil; the TPU's VMEM slab condition becomes the card's
 ``adv_lap_rhs3_ref`` and ``lap_rhs_ref``, the plain PyTorch versions, which
 apply the dense operators.
 
+K3 and K5 stage two x-lines per line in their x phase (f and T_z f), so
+they take x-lines up to nx = 6134; ``adv_lap_fits`` and ``adv_lap3_fits``
+say where, as ``xy_launch`` tests it before it launches, and the fused
+substep (``ops/fused_step.py``) decides its head by them.
+
 ``LAUNCHES``, ``LAUNCHES3`` and ``LAP_LAUNCHES`` count calls that launched
 K3, K5 and K9 (each kernel's two phases count once); nothing but the launch
 adds to them.
@@ -48,6 +53,8 @@ __all__ = [
     "LAUNCHES3",
     "z_tables",
     "device_z_tables",
+    "adv_lap_fits",
+    "adv_lap3_fits",
     "adv_lap_rhs",
     "adv_lap_rhs_ref",
     "adv_lap_rhs3",
@@ -99,6 +106,19 @@ def device_z_tables(scheme: CompactScheme, n: int, dz: float, device: torch.devi
     bt = torch.as_tensor(btab / dz**scheme.derivative_order, dtype=torch.float32, device=device)
     tt = torch.as_tensor(ttab, dtype=torch.float32, device=device)
     return bt, tt
+
+
+def adv_lap_fits(shape) -> bool:
+    """Whether K3's x phase takes the x-lines of (nz, ny, nx) fields: two
+    staged lines (the advection and the Laplacian family's) within an x
+    block's 48 KB (``xy_launch``, ``csrc/xy_phase.cuh``): nx <= 6134."""
+    return _native.x_lines_fit(shape[-1], tiles=2)
+
+
+def adv_lap3_fits(shape) -> bool:
+    """Whether K5's x phase takes the x-lines of (nz, ny, nx) fields: K5
+    stages each component's two lines as K3 does (``adv_lap_fits``)."""
+    return _native.x_lines_fit(shape[-1], tiles=2)
 
 
 def _check(f, ux, uy, scheme1: CompactScheme, scheme2: CompactScheme) -> None:

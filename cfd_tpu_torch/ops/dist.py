@@ -50,7 +50,7 @@ import torch
 
 from ..schemes import CompactScheme
 from . import _native
-from .rhs import closure_rows, stencil_rhs
+from .rhs import shard_rhs
 
 __all__ = [
     "LAUNCHES",
@@ -141,17 +141,8 @@ def _line_view(x: np.ndarray, t: torch.Tensor) -> torch.Tensor:
 def _block_ref(f, hl, hr, ab, inv_dx, block: ShardBlock) -> torch.Tensor:
     """The plain version along axis 0: f (nl, *b), hl/hr (w, *b), ab (2, *b)
     or None."""
-    scheme = block.scheme
     require_full_f32(f.dtype)
-    r = stencil_rhs(torch.cat([hl, f, hr]), inv_dx, scheme)
-    if block.first or block.last:
-        scale = float(inv_dx) ** scheme.derivative_order
-        left, right = closure_rows(f, scheme)
-        r = r.clone()
-        for j, v in enumerate(left if block.first else ()):
-            r[j] = v * scale
-        for j, v in enumerate(right if block.last else ()):
-            r[block.nl - 1 - j] = v * scale
+    r = shard_rhs(f, hl, hr, inv_dx, block.scheme, block.first, block.last)
     tinv = torch.as_tensor(block.tinv, dtype=f.dtype, device=f.device)
     x = torch.tensordot(tinv, r, dims=([1], [0]))
     if ab is not None:

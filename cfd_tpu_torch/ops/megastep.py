@@ -14,6 +14,12 @@ launches ``rk3_mega`` (``csrc/rk3_mega.cu``); on a CPU tensor it returns
 ``rk3_mega_ref``, the plain PyTorch version, which applies the dense
 operators.
 
+``rk3_mega_supported`` says where K4 is taken: it stages nothing in shared
+memory, so its only conditions are float32 (nz, ny, nx) fields and a z line
+that both schemes take. Where it is not, the fused substep's tail runs
+stepwise (``ops/fused_step.py``: K2 with ``mul`` and ``acc``, then K2's
+``rk`` mode).
+
 ``LAUNCHES`` counts kernel launches; nothing but the launch adds to it.
 """
 
@@ -27,9 +33,16 @@ from ..schemes import CompactScheme
 from . import _native
 from .dense import dense_apply, dense_derivative
 
-__all__ = ["LAUNCHES", "rk3_mega", "rk3_mega_ref"]
+__all__ = ["LAUNCHES", "rk3_mega_supported", "rk3_mega", "rk3_mega_ref"]
 
 LAUNCHES = 0
+
+
+def rk3_mega_supported(scheme1: CompactScheme, scheme2: CompactScheme, shape, dtype) -> bool:
+    """Whether K4 takes (nz, ny, nx) fields of ``dtype`` for the d1
+    ``scheme1`` and the d2 ``scheme2``."""
+    return (len(shape) == 3 and dtype == torch.float32
+            and shape[0] >= max(scheme1.min_points(), scheme2.min_points()))
 
 
 def _check(f, r, axy, uz, q, scheme1: CompactScheme, scheme2: CompactScheme) -> None:

@@ -1,5 +1,6 @@
-"""Both xy derivatives of one field in one call: kernels K7 (``gradient_pair``)
-and K8 (``d2_pair_sum``), and the projection's x/y update (``pair_subtract``).
+"""Both xy derivatives of one field in one call: kernels K7 (``gradient_pair``),
+K8 (``d2_pair_sum``) and K13 (``advection_pair``), and the projection's x/y
+update (``pair_subtract``).
 
 The port of ``cfd_tpu/ops/pallas_pair.py``:
 
@@ -14,6 +15,11 @@ The port of ``cfd_tpu/ops/pallas_pair.py``:
   launches K8 (``csrc/d2_sum.cu``, a weighted family of
   ``csrc/xy_phase.cuh``). ``derivatives.laplacian`` takes it for a
   non-periodic d2 scheme, with z through K2's ``acc`` epilogue.
+* ``advection_pair``: ``ux * df/dx + uy * df/dy`` for a first-derivative
+  scheme (``_adv_pair_kernel``), the stepwise head of the fused RK3
+  substep (``ops/fused_step.py``) where K3 does not fit. On a CUDA float32
+  tensor it launches K13 (``csrc/adv_pair.cu``, an advection family of
+  ``csrc/xy_phase.cuh`` alone), whose x phase stages one x-line per line.
 * ``pair_subtract``: the x and y components of ``u - grad(phi)`` in
   ``ops/poisson.project``'s compact form (``_pair_sub_kernel``). On a CUDA
   float32 tensor it launches K1 (``csrc/compact_lane.cu``) and K2
@@ -21,16 +27,18 @@ The port of ``cfd_tpu/ops/pallas_pair.py``:
   spacing, ``ax + D(-dx) phi``, so neither derivative of phi makes a round
   trip through memory: 3 reads and 2 writes in all, as the TPU kernel.
 
-``pair_supported`` and ``d2_sum_supported`` say where ``"auto"`` takes K7
-and K8, as their JAX namesakes do on the TPU: the scheme's derivative order
+``pair_supported``, ``d2_sum_supported`` and ``adv_pair_supported`` say
+where ``"auto"`` and the fused substep take K7, K8 and K13, as their JAX
+namesakes do on the TPU: the scheme's derivative order
 and float32; the TPU's conditions of a plane in VMEM with axes that are
 multiples of 128 become the card's (``_native.xy_planes_fit``): lines no
 shorter than the scheme, and an x-line within an x block's 48 KB of shared
 memory. On a CPU tensor each function returns its plain PyTorch
 version (``*_ref``), from the dense operators.
 
-``GRADIENT_LAUNCHES``, ``D2_SUM_LAUNCHES`` and ``LAUNCHES`` count calls that
-launched K7, K8 and the ``pair_subtract`` kernels (K8's two phases, and
+``GRADIENT_LAUNCHES``, ``D2_SUM_LAUNCHES``, ``ADV_PAIR_LAUNCHES`` and
+``LAUNCHES`` count calls that launched K7, K8, K13 and the
+``pair_subtract`` kernels (K8's and K13's two phases, and
 ``pair_subtract``'s two launches, count once); nothing but a launch adds to
 them.
 """
@@ -48,19 +56,24 @@ from .dense import dense_derivative
 __all__ = [
     "GRADIENT_LAUNCHES",
     "D2_SUM_LAUNCHES",
+    "ADV_PAIR_LAUNCHES",
     "LAUNCHES",
     "pair_supported",
     "d2_sum_supported",
+    "adv_pair_supported",
     "gradient_pair",
     "gradient_pair_ref",
     "d2_pair_sum",
     "d2_pair_sum_ref",
+    "advection_pair",
+    "advection_pair_ref",
     "pair_subtract",
     "pair_subtract_ref",
 ]
 
 GRADIENT_LAUNCHES = 0
 D2_SUM_LAUNCHES = 0
+ADV_PAIR_LAUNCHES = 0
 LAUNCHES = 0
 
 
@@ -74,6 +87,12 @@ def d2_sum_supported(scheme: CompactScheme, ny: int, nx: int, dtype) -> bool:
     """Whether K8 takes (..., ny, nx) fields of ``dtype`` for ``scheme``."""
     return (scheme.derivative_order == 2 and dtype == torch.float32
             and _native.xy_planes_fit(scheme, ny, nx))
+
+
+def adv_pair_supported(scheme: CompactScheme, ny: int, nx: int, dtype) -> bool:
+    """Whether K13 takes (..., ny, nx) fields of ``dtype`` for ``scheme``:
+    K7's conditions (one staged x-line, up to nx = 12278)."""
+    return pair_supported(scheme, ny, nx, dtype)
 
 
 def _check_field(who: str, f, scheme: CompactScheme, order: int) -> None:
@@ -155,6 +174,48 @@ def d2_pair_sum(f, dy, dx, scheme: CompactScheme):
     _native.check(err, "d2_sum")
     D2_SUM_LAUNCHES += 1
     return s
+
+
+def _check_adv(f, ux, uy, scheme: CompactScheme) -> None:
+    _check_field("advection_pair", f, scheme, 1)
+    if ux.shape != f.shape or uy.shape != f.shape:
+        raise ValueError(
+            f"velocity shapes {tuple(ux.shape)}/{tuple(uy.shape)} != field shape {tuple(f.shape)}"
+        )
+
+
+def advection_pair_ref(f, ux, uy, dy, dx, scheme: CompactScheme):
+    """The plain PyTorch version: the dense operators along x and y, then
+    ``ux * fx + uy * fy``."""
+    _check_adv(f, ux, uy, scheme)
+    return ux * dense_derivative(f, dx, scheme, -1) + uy * dense_derivative(f, dy, scheme, -2)
+
+
+def advection_pair(f, ux, uy, dy, dx, scheme: CompactScheme):
+    """``ux * df/dx + uy * df/dy`` of ``f`` (..., ny, nx) in one call.
+
+    ``scheme`` is a first-derivative scheme, periodic or not. CUDA tensors
+    must be float32 and contiguous and run the kernel; an x-line past 48 KB
+    and a launch failure raise. CPU tensors take ``advection_pair_ref``.
+    """
+    global ADV_PAIR_LAUNCHES
+    _check_adv(f, ux, uy, scheme)
+    if f.device.type == "cpu":
+        return advection_pair_ref(f, ux, uy, dy, dx, scheme)
+    _native.check_operands("adv_pair", f, ux, uy)
+    cx, tx, cy, ty, planes = _xy_tables(f, dy, dx, scheme)
+    out = torch.empty_like(f)
+    if planes == 0:
+        return out
+    with torch.cuda.device(f.device):
+        err = _native.library().cfd_adv_pair(
+            f.data_ptr(), ux.data_ptr(), uy.data_ptr(), out.data_ptr(), ty.data_ptr(),
+            tx.data_ptr(), ctypes.byref(cy), ctypes.byref(cx), planes,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _native.check(err, "adv_pair")
+    ADV_PAIR_LAUNCHES += 1
+    return out
 
 
 def _check(f, ax, ay, scheme: CompactScheme) -> None:

@@ -6,9 +6,21 @@ The port of ``cfd_tpu/ops/rhs.py``:
   ``w = scheme.stencil_width`` ghost or halo rows on each side;
 * ``compact_rhs`` — the RHS of a whole line, with closure rows at both
   ends of a non-periodic scheme (and the wrap of a periodic one);
+* ``shard_rhs`` — the RHS of one shard's line of a distributed line: the
+  interior stencil over its halo rows, and a non-periodic scheme's closure
+  rows formed from f on the line's end shards;
 * ``closure_ghosts`` — ghost rows that make the interior stencil reproduce
-  a non-periodic scheme's closure rows, so that a distributed line's end
-  shards run the same uniform stencil as its interior ones.
+  a non-periodic scheme's closure rows, for the distributed fast path's
+  interface faces (``parallel/compact.py``).
+
+Every row is formed as the kernels form it (``csrc/compact_common.cuh``):
+from differences to the row's own value, and a second derivative's closure
+rows from second differences. Each difference of neighbouring values is
+exact in floating point, so a float32 row keeps the rounding of its
+differences, O(dx f') or O(dx^2 f''), and not of the O(f) values: formed
+from the raw values, a float32 d2 row at dx = 2 pi / 64 loses ~1e-5 of an
+O(1) f'', which the closure LHS's corner (pivot -0.1) amplifies to ~1e-2
+(a CPU run of the generic distributed routes, SCHEME6_D2).
 
 Plain PyTorch, any dtype, any device: the distributed layer's plain path
 and the plain versions of its kernels (``ops/dist.py``) use them.
@@ -16,35 +28,90 @@ and the plain versions of its kernels (``ops/dist.py``) use them.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..schemes import CompactScheme
+from ._native import second_differences
 
-__all__ = ["stencil_rhs", "compact_rhs", "closure_ghosts", "closure_rows"]
+__all__ = ["stencil_rhs", "compact_rhs", "shard_rhs", "closure_ghosts", "closure_rows"]
+
+
+def _exact_zero(x: float, scale: float) -> float:
+    """``x``, or 0 where it is rounding of a sum that vanishes (a
+    derivative's row annihilates constants)."""
+    return 0.0 if abs(x) < 1e-12 * max(scale, 1.0) else x
 
 
 def stencil_rhs(f_ext: torch.Tensor, inv_dx, scheme: CompactScheme) -> torch.Tensor:
     """Uniform interior stencil over ``f_ext`` (n + 2w, *batch), w ghost or
     halo rows on each side; returns (n, *batch), scaled by
-    ``inv_dx ** derivative_order``."""
+    ``inv_dx ** derivative_order``. Each row is formed from differences to
+    its own value f[i]; a filter's rows keep constants (``center``)."""
     w = scheme.stencil_width
     n = f_ext.shape[0] - 2 * w
-    r = torch.zeros_like(f_ext[w : w + n])
-    for k, wk in zip(scheme.rhs_offsets, scheme.rhs_weights):
-        r = r + wk * (f_ext[w + k : w + k + n] + scheme.rhs_sign * f_ext[w - k : w - k + n])
-    if scheme.rhs_center:
-        r = r + scheme.rhs_center * f_ext[w : w + n]
+    fi = f_ext[w : w + n]
+    sgn = scheme.rhs_sign
+    weights = scheme.rhs_weights
+    center = _exact_zero(scheme.rhs_center + (1.0 + sgn) * sum(weights),
+                         sum(abs(c) for c in weights))
+    r = center * fi if center else torch.zeros_like(fi)
+    for k, wk in zip(scheme.rhs_offsets, weights):
+        r = r + wk * ((f_ext[w + k : w + k + n] - fi) + sgn * (f_ext[w - k : w - k + n] - fi))
     return r * float(inv_dx) ** scheme.derivative_order
+
+
+def _closure_row(g: torch.Tensor, j: int, stencil, order: int) -> torch.Tensor:
+    """Closure row ``j`` of the line ``g`` read from its wall (unscaled):
+    ``sum_m c_m g[m]`` from differences to g[j], or for a second derivative
+    from the second differences ``g[m] - 2 g[m+1] + g[m+2]``."""
+    c = np.asarray(stencil, np.float64)
+    if order == 2:
+        d = second_differences(c)
+        out = torch.zeros_like(g[0])
+        for m, dm in enumerate(d[: len(c) - 2]):
+            if dm:
+                mid = g[m + 1]
+                out = out + float(dm) * ((g[m] - mid) + (g[m + 2] - mid))
+        return out
+    gj = g[j]
+    total = _exact_zero(float(c.sum()), float(np.abs(c).sum()))
+    out = total * gj if total else torch.zeros_like(gj)
+    for m, cm in enumerate(c):
+        if cm and m != j:
+            out = out + float(cm) * (g[m] - gj)
+    return out
 
 
 def closure_rows(f: torch.Tensor, scheme: CompactScheme):
     """The closure rows' unscaled RHS values of the line ``f`` (n, *batch):
-    (left rows 0, 1, ..., right rows n-1, n-2, ...), each of batch shape."""
-    left = [sum(c * f[m] for m, c in enumerate(row.rhs_stencil)) for row in scheme.left_rows]
-    n = f.shape[0]
-    right = [sum(c * f[n - 1 - m] for m, c in enumerate(row.rhs_stencil))
-             for row in scheme.right_rows]
+    (left rows 0, 1, ..., right rows n-1, n-2, ...), each of batch shape,
+    in the kernels' difference form."""
+    order = scheme.derivative_order
+    left = [_closure_row(f, j, row.rhs_stencil, order) for j, row in enumerate(scheme.left_rows)]
+    fr = f.flip(0)
+    right = [_closure_row(fr, j, row.rhs_stencil, order)
+             for j, row in enumerate(scheme.right_rows)]
     return left, right
+
+
+def shard_rhs(f: torch.Tensor, hl: torch.Tensor, hr: torch.Tensor, inv_dx,
+              scheme: CompactScheme, first: bool, last: bool) -> torch.Tensor:
+    """RHS of one shard's lines ``f`` (nl, *batch) with halo rows ``hl``/``hr``
+    (w, *batch): the interior stencil, and where the shard holds a
+    non-periodic line's physical end (``first``/``last``), the closure rows
+    there formed from ``f`` (an open side's halo rows are not read)."""
+    r = stencil_rhs(torch.cat([hl, f, hr]), inv_dx, scheme)
+    if scheme.periodic or not (first or last):
+        return r
+    scale = float(inv_dx) ** scheme.derivative_order
+    left, right = closure_rows(f, scheme)
+    nl = f.shape[0]
+    for j, v in enumerate(left if first else ()):
+        r[j] = v * scale
+    for j, v in enumerate(right if last else ()):
+        r[nl - 1 - j] = v * scale
+    return r
 
 
 def compact_rhs(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
@@ -56,15 +123,7 @@ def compact_rhs(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
         ext = torch.cat([f[-w:], f, f[:w]])
         return stencil_rhs(ext, 1.0 / dx, scheme)
     zeros = f.new_zeros((w,) + f.shape[1:])
-    r = stencil_rhs(torch.cat([zeros, f, zeros]), 1.0, scheme)
-    left, right = closure_rows(f, scheme)
-    r = r.clone()
-    n = f.shape[0]
-    for j, v in enumerate(left):
-        r[j] = v
-    for j, v in enumerate(right):
-        r[n - 1 - j] = v
-    return r * (1.0 / dx) ** scheme.derivative_order
+    return shard_rhs(f, zeros, zeros, 1.0 / dx, scheme, True, True)
 
 
 def closure_ghosts(f: torch.Tensor, scheme: CompactScheme):

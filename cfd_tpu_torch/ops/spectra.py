@@ -5,7 +5,7 @@ the incompressible models computes from the fields they evolve. The binning
 tables (each rfft mode's shell index and Hermitian multiplicity) are built
 once per shape and spacing in float64 numpy and cached, and their tensors
 once per device; the device work is one ``torch.fft.rfftn`` per component
-and one ``index_add_`` into the shells (the JAX package's ``segment_sum``).
+and a fixed-order sum into the shells (the JAX package's ``segment_sum``).
 
 Two families:
 
@@ -18,10 +18,12 @@ Two families:
   ``gradient``, so they measure what the discrete model dissipates; on the
   card they ride K10 and K7 through the normal ``"auto"`` routing.
 
-On the card, ``index_add_`` sums with atomics in an order that changes from
-run to run, so a float32 shell sum differs between runs by a few roundings
-of its largest terms (~1e-7 of the shell's value); in float64 the run to
-run difference is ~1e-16.
+The shell sum has no atomics: the modes are sorted by shell once (the
+cached tables), each shell's run is cut into chunks of ``_CHUNK`` modes,
+and two reductions along a fixed axis sum the chunks and then each shell's
+chunks. Its order is fixed by the shape alone, so two calls on the same
+field give the same bits, on the card as on the CPU (an ``index_add_``
+sums with atomics on the card, in an order that changes from run to run).
 """
 
 from __future__ import annotations
@@ -73,11 +75,39 @@ def _shell_tables(shape, spacing):
     return bins, weights, k_centers
 
 
+_CHUNK = 1024  # modes per first-level sum of the shell reduction
+
+
+@functools.lru_cache(maxsize=32)
+def _shell_order(shape, spacing):
+    """(gather, chunks), int64: the fixed order of the shell sum.
+
+    ``gather`` (n_chunks * _CHUNK,) lists the flat rfft modes sorted by
+    shell, each shell's run padded with the index one past the last mode
+    (a zero) to whole chunks; ``chunks`` (n_shells, most chunks of a shell)
+    lists each shell's chunks, padded with ``n_chunks`` (a zero)."""
+    bins, _, k_centers = _shell_tables(shape, spacing)
+    flat = bins.ravel()
+    order = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=len(k_centers))
+    per_shell = -(-counts // _CHUNK)  # chunks of each shell
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    gather = np.full(int(per_shell.sum()) * _CHUNK, flat.size, np.int64)
+    chunks = np.full((len(k_centers), max(int(per_shell.max()), 1)), int(per_shell.sum()), np.int64)
+    c0 = 0
+    for s, (start, count, nc) in enumerate(zip(starts, counts, per_shell)):
+        gather[c0 * _CHUNK : c0 * _CHUNK + count] = order[start : start + count]
+        chunks[s, :nc] = np.arange(c0, c0 + nc)
+        c0 += nc
+    return gather, chunks
+
+
 @functools.lru_cache(maxsize=16)
 def _device_shell_tables(shape, spacing, dtype, device):
-    bins, weights, k_centers = _shell_tables(shape, spacing)
-    return (torch.as_tensor(bins.ravel(), device=device),
-            torch.as_tensor(weights, dtype=dtype, device=device), len(k_centers))
+    _, weights, k_centers = _shell_tables(shape, spacing)
+    gather, chunks = _shell_order(shape, spacing)
+    return (torch.as_tensor(gather, device=device), torch.as_tensor(chunks, device=device),
+            torch.as_tensor(weights, dtype=dtype, device=device))
 
 
 def _spacing_key(spacing):
@@ -97,14 +127,15 @@ def _shell_power(f: torch.Tensor, spacing) -> torch.Tensor:
     so the result sums to ``mean(f^2)``: shape ``[n_shells, ...]``."""
     shape = tuple(f.shape[-3:])
     real = torch.float64 if f.dtype == torch.float64 else torch.float32
-    bins, weights, n_shells = _device_shell_tables(shape, spacing, real, f.device)
+    gather, chunks, weights = _device_shell_tables(shape, spacing, real, f.device)
     fh = torch.fft.rfftn(f, dim=_AXES)
     power = (fh.real**2 + fh.imag**2) * weights
     batch = f.shape[:-3]
     flat = power.reshape(math.prod(batch), -1) / float(math.prod(shape)) ** 2
-    out = torch.zeros((n_shells, flat.shape[0]), dtype=real, device=f.device)
-    out.index_add_(0, bins, flat.T)
-    return out.reshape(n_shells, *batch)
+    pad = flat.new_zeros((flat.shape[0], 1))
+    sums = torch.cat([flat, pad], 1)[:, gather].reshape(flat.shape[0], -1, _CHUNK).sum(-1)
+    out = torch.cat([sums, pad], 1)[:, chunks].sum(-1)  # (batch, n_shells)
+    return out.T.reshape(chunks.shape[0], *batch)
 
 
 def scalar_spectrum(f: torch.Tensor, spacing) -> torch.Tensor:

@@ -15,7 +15,12 @@ scheme, filters with no spacing scale) and its epilogue modes:
   ``uz - dphi/dz``);
 * ``mul``: ``mul * f' + acc`` (the advection term ``uz * fz + axy``);
 * ``solve_only``: ``leading_solve`` solves ``T x = r`` for a right-hand side
-  that is already formed (the second half of the fused divergence).
+  that is already formed (the second half of the fused divergence);
+* ``rk``: ``rk3_solve_update`` solves ``lap = T^{-1} r`` for the
+  Laplacian's z right-hand side r and emits the Williamson RK3 update
+  ``q' = a q + dt (nu lap - adv)``, ``f' = fin + b q'`` from its backward
+  sweep (``pallas_leading.rk3_solve_update``, ``_leading_kernel(rk=True)``):
+  the stepwise tail of the fused substep where K4 is not taken.
 
 On a CPU tensor each function returns its plain PyTorch version
 (``*_ref``).
@@ -45,10 +50,12 @@ __all__ = [
     "strided_derivative_ref",
     "leading_solve",
     "leading_solve_ref",
+    "rk3_solve_update",
+    "rk3_solve_update_ref",
 ]
 
 LAUNCHES = 0
-MODE_LAUNCHES = {"derivative": 0, "filter": 0, "acc": 0, "mul": 0, "solve": 0}
+MODE_LAUNCHES = {"derivative": 0, "filter": 0, "acc": 0, "mul": 0, "solve": 0, "rk": 0}
 
 
 def strided_derivative_ref(
@@ -115,6 +122,62 @@ def leading_solve(rhs: torch.Tensor, scheme: CompactScheme) -> torch.Tensor:
     LAUNCHES += 1
     MODE_LAUNCHES["solve"] += 1
     return out
+
+
+def _check_rk(r, adv, q, fin, scheme: CompactScheme) -> None:
+    if scheme.derivative_order != 2:
+        raise ValueError(f"rk3_solve_update: {scheme.name!r} is not a second-derivative scheme")
+    if r.ndim != 3:
+        raise ValueError(f"rk3_solve_update needs (nz, ny, nx) fields, got {tuple(r.shape)}")
+    for name, arr in (("adv", adv), ("fin", fin)) + ((("q", q),) if q is not None else ()):
+        if arr.shape != r.shape:
+            raise ValueError(f"{name} shape {tuple(arr.shape)} != rhs shape {tuple(r.shape)}")
+
+
+def rk3_solve_update_ref(r, adv, q, fin, scheme: CompactScheme, *, a, b, dt, nu):
+    """The plain PyTorch version: the dense ``T^{-1}`` along z, then the
+    update."""
+    _check_rk(r, adv, q, fin, scheme)
+    lap = dense_apply("lhs_inverse", r, scheme, 0)
+    qn = (dt * nu) * lap - dt * adv
+    if q is not None:
+        qn = qn + a * q
+    return qn, fin + b * qn
+
+
+def rk3_solve_update(r, adv, q, fin, scheme: CompactScheme, *, a, b, dt, nu):
+    """``(q', f')`` of one Williamson RK3 substep from the Laplacian's z
+    right-hand side ``r`` (``adv_lap.lap_rhs``), the advection term ``adv``
+    and the substep's input ``fin``, all (nz, ny, nx):
+
+        lap = T_z^{-1} r,   q' = a q + dt (nu lap - adv),   f' = fin + b q'
+
+    with ``T_z`` the d2 ``scheme``'s LHS along z; ``q=None`` encodes the
+    first substep (a == 0). CUDA tensors must be float32 and contiguous and
+    run K2 in its rk mode; a launch failure raises. CPU tensors take
+    ``rk3_solve_update_ref``.
+    """
+    global LAUNCHES
+    _check_rk(r, adv, q, fin, scheme)
+    if r.device.type == "cpu":
+        return rk3_solve_update_ref(r, adv, q, fin, scheme, a=a, b=b, dt=dt, nu=nu)
+    _native.check_operands("compact_strided", r, adv, fin, *((q,) if q is not None else ()))
+    n = r.shape[0]
+    coef, tab = _native.launch_tables(scheme, n, 1.0, r.device)  # only its LHS is read
+    qout, fout = torch.empty_like(r), torch.empty_like(r)
+    if r.numel() == 0:
+        return qout, fout
+    with torch.cuda.device(r.device):
+        err = _native.library().cfd_strided_rk(
+            r.data_ptr(), adv.data_ptr(), q.data_ptr() if q is not None else None,
+            fin.data_ptr(), qout.data_ptr(), fout.data_ptr(), tab.data_ptr(),
+            ctypes.byref(coef), float(a), float(b), float(dt), float(dt) * float(nu),
+            1, r.numel() // n, torch.cuda.current_stream().cuda_stream,
+        )
+    _native.check(err, "compact_strided")
+    LAUNCHES += 1
+    MODE_LAUNCHES["rk"] += 1
+    return qout, fout
 
 
 def launch(f, dx, scheme: CompactScheme, axis: int, *, acc=None, mul=None,

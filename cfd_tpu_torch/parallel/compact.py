@@ -13,8 +13,11 @@ shard its combination weights
   pivoted at setup in float64, and computed in float64 (the faces are a
   sliver of the field).
 * The unit-load systems are solved once at setup in float64.
-* Closures at physical ends ride in ghost rows (``ops/rhs.closure_ghosts``)
-  wherever a phase runs the uniform stencil; halo faces move with one
+* Closures at physical ends: the end shards form their closure rows from
+  f, in every route (``ops/rhs.shard_rhs``, and K11/K12's ``first``/``last``),
+  as the single-device kernels do; only the fast path's interface faces,
+  dots of folded stencils over the halo-extended slab, read them through
+  ghost rows (``ops/rhs.closure_ghosts``). Halo faces move with one
   ``ppermute`` per direction (``parallel/halo.py``).
 * Periodic lines need nothing beyond a cyclic reduced matrix: the corner
   couplings close the ring of blocks.
@@ -58,7 +61,7 @@ import torch
 
 from ..ops import derivatives as single
 from ..ops import dist, tridiag
-from ..ops.rhs import closure_ghosts, stencil_rhs
+from ..ops.rhs import closure_ghosts, shard_rhs
 from ..schemes import CompactScheme, lhs_bands
 from .dist_tables import pick_nb, shard_blocks, shard_kernel_tables, shard_table
 from .halo import halo_slices
@@ -213,10 +216,23 @@ def _halo_ghosts(x: Sharded, *, scheme: CompactScheme, axis: int, p: int, dim: i
     return x.map(fix, left, right, coords=True).unzip()
 
 
-def _assemble_rhs(lines: Sharded, left: Sharded, right: Sharded, *, scheme, inv_dx) -> Sharded:
-    """Shard-local compact RHS with the halo/ghost rows folded in."""
-    return lines.map(lambda fl, lo, hi: stencil_rhs(torch.cat([lo, fl, hi]), inv_dx, scheme),
-                     left, right)
+def _assemble_rhs(lines: Sharded, left: Sharded, right: Sharded, *, scheme, axis, p,
+                  inv_dx) -> Sharded:
+    """Shard-local compact RHS of lines (nl, *batch): the stencil over the
+    halo rows, the closure rows formed from f on the end shards."""
+    def rhs(coord, fl, lo, hi):
+        rank = coord[axis]
+        return shard_rhs(fl, lo, hi, inv_dx, scheme, rank == 0, rank == p - 1)
+
+    return lines.map(rhs, left, right, coords=True)
+
+
+def _halos(lines: Sharded, *, scheme, axis: int) -> Sharded:
+    """The generic route's halo rows of lines (nl, *batch), zeros on a
+    non-periodic line's open sides (never read: the end shards form their
+    closure rows from f)."""
+    left, right = halo_slices(lines, AXIS_NAMES[axis], scheme.stencil_width, scheme.periodic)
+    return left.map(torch.Tensor.contiguous), right.map(torch.Tensor.contiguous)
 
 
 def _phase_local_solve(lines, left, right, *, scheme, axis, p, n, inv_dx, method) -> Sharded:
@@ -231,7 +247,7 @@ def _phase_local_solve(lines, left, right, *, scheme, axis, p, n, inv_dx, method
             return x.reshape(fl.shape)
 
         return lines.map(solve, left, right, coords=True)
-    rhs = _assemble_rhs(lines, left, right, scheme=scheme, inv_dx=inv_dx)
+    rhs = _assemble_rhs(lines, left, right, scheme=scheme, axis=axis, p=p, inv_dx=inv_dx)
     tables = direction_tables(scheme, n, p)
     if method == "matmul":
         def solve(coord, r):
@@ -282,10 +298,10 @@ def _phase_update(x_r: Sharded, ab: Sharded, tables: DirectionTables, axis: int)
 def _dist_lines(lines: Sharded, *, scheme, axis, p, n, inv_dx, method) -> Sharded:
     """Distributed derivative of shard-local lines (nl, *batch) along mesh
     ``axis``: the generic route."""
-    left, right = _halo_ghosts(lines, scheme=scheme, axis=axis, p=p)
+    left, right = _halos(lines, scheme=scheme, axis=axis)
     if method == "phipsi":
         tables = phipsi_tables(scheme, n, p)  # raises for periodic schemes
-        rhs = _assemble_rhs(lines, left, right, scheme=scheme, inv_dx=inv_dx)
+        rhs = _assemble_rhs(lines, left, right, scheme=scheme, axis=axis, p=p, inv_dx=inv_dx)
         return phipsi_lines(rhs, tables, axis=axis)
     x_r = _phase_local_solve(lines, left, right, scheme=scheme, axis=axis, p=p, n=n,
                              inv_dx=inv_dx, method=method)

@@ -13,8 +13,8 @@ script exits non-zero without printing the final line:
 2. build    — nvcc builds kernels K1 (compact_lane), K2 (compact_strided),
               K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3), K6 (div_rhs), K7
               (gradient_pair), K8 (d2_sum), K9 (lap_rhs), K10 (curl_rhs), K11
-              (lane_dist) and K12 (strided_dist) for sm_90a from
-              cfd_tpu_torch/csrc/, one nvcc per source, in parallel.
+              (lane_dist), K12 (strided_dist) and K13 (adv_pair) for sm_90a
+              from cfd_tpu_torch/csrc/, one nvcc per source, in parallel.
 3. kernels  — each kernel against its plain PyTorch version (dense
               operators, float64, on the same float32 inputs):
               K1/K2 at 256^3 for the four first- and the four
@@ -38,10 +38,14 @@ script exits non-zero without printing the final line:
               and an interior ragged (40, 96, 200) shard, and K12 without it
               on the flat 64-point lines of 256^3 over 4 (first, interior,
               last), for a d1, a d2 and a filter scheme each periodic and
-              not. Gate: max|err| <= 1e-5 * max|ref|, 5e-5 for second
-              derivatives with closure rows; K11/K12 at the JAX dist
-              kernels' gates (2e-6; 2e-5 d2 with closures; 5e-6 periodic
-              filters, 1e-4 filters with closures).
+              not; K13 for the four d1 schemes at (64, 128, 8192), 256^3
+              and (40, 96, 200), and K2's rk mode for the four d2 schemes
+              at (64, 128, 8192) and 256^3 (first, middle and last
+              substep, at nu = 1e-3 and at dt * nu = 1). Gate: max|err| <=
+              1e-5 * max|ref|, 5e-5 for second derivatives with closure
+              rows; K11/K12 at the JAX dist kernels' gates (2e-6; 2e-5 d2
+              with closures; 5e-6 periodic filters, 1e-4 filters with
+              closures).
 4. accuracy — dfdx of sin(x) against cos(x) (5e-4) and d2fdx2 of sin(x)
               against -sin(x) (2e-3), at 256^3; laplacian of (sin x + sin
               y + sin z) / 3 against minus itself on the periodic (K9) and
@@ -77,8 +81,10 @@ script exits non-zero without printing the final line:
               each against the plain float64 path at the kernels' gates;
               the diagnostics slice: 5 Navier–Stokes steps, then
               enstrophy (K10 + two K2 solves), dissipation (K7 + K2 per
-              component) and energy_spectrum (cuFFT), gated against the
-              float64 plain path (1e-5 of the scalars and of max E(k)).
+              component) and energy_spectrum (cuFFT and a fixed-order shell
+              sum), gated against the float64 plain path (1e-5 of the
+              scalars and of max E(k)); a second energy_spectrum call on
+              the same field must give the same bits.
 6. distributed paths — DistributedCompactSolver at 256^3 f32 on meshes
               of shards all on this card, each path with its launch counts:
               dfdx/dfdy/dfdz of sin x + sin y + sin z on (2, 2, 2) (SCHEME4,
@@ -93,6 +99,16 @@ script exits non-zero without printing the final line:
               AdvectionDiffusion(Derivs.distributed(solver, d2_solver)) on
               (2, 2, 2) (K11, K12) and (1, 2, 2) (K11, K12, K4) at nu =
               1e-3 and 0.05, at the slices' gates, with launch counts.
+   long x   — the stepwise fused substep (ops/fused_step.py's
+              stepwise_head and stepwise_tail: K13 + K9 + K2 mul+acc + K2
+              rk), the three substeps of one step at (64, 128, 8192) and
+              256^3, each against the plain float64 substep and against the
+              K3/K13 + K4 substep (f' at 1e-5, q' at 1e-3); 5 steps of
+              AdvectionDiffusion (second_derivative=True), Burgers and
+              NavierStokes at (64, 128, 8192) f32 (spacing 2 pi / 128:
+              x-lines too long for K3 and K5, so K13 + K9 + K4 per
+              substep) against plain float64, at the slices' gates, with
+              launch counts.
 7. times    — CUDA-event medians at 256^3, in turns: each kernel against
               its plain float32 version (and a single PyTorch call where
               one computes the same function), K5 against three K3
@@ -108,7 +124,10 @@ script exits non-zero without printing the final line:
               operator; the distributed step on (2, 2, 2) and (1, 2, 2) in
               turns with the single-device fused step. Shards that share one
               card measure the distributed algorithm's overhead, not its
-              scaling.
+              scaling. At (64, 128, 8192) (and 256^3 for the kernels): K13
+              and K2 rk with their plain versions and their unfused
+              compositions, the stepwise tail against K4, and each model's
+              step in turns with its generic step.
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -138,7 +157,8 @@ from cfd_tpu_torch.models import (
     taylor_green,
 )
 from cfd_tpu_torch.ops import (
-    _native, adv_lap, dense, dist, lane, megastep, pair, poisson, spectra, strided, vec,
+    _native, adv_lap, dense, dist, fused_step, lane, megastep, pair, poisson, spectra, strided,
+    vec,
 )
 from cfd_tpu_torch.ops.rhs import closure_ghosts
 from cfd_tpu_torch.parallel import DistributedCompactSolver, Grid, make_mesh
@@ -305,6 +325,14 @@ KERNELS = {
         "replaces": "cfd_tpu/ops/pallas_fused.py:78 (_fused_kernel via "
         "solve_lines_tables_pallas)",
     },
+    "adv_pair": {
+        "source": "cfd_tpu_torch/csrc/adv_pair.cu",
+        "replaces": "cfd_tpu/ops/pallas_pair.py:519 (_adv_pair_kernel via _call_adv_pair)",
+    },
+    "compact_strided_rk": {
+        "source": "cfd_tpu_torch/csrc/compact_strided.cu",
+        "replaces": "cfd_tpu/ops/pallas_leading.py:157 (_leading_kernel rk=True via _call_rk3)",
+    },
 }
 
 
@@ -321,6 +349,7 @@ def launch_counts() -> dict:
         "compact_strided_filter": modes["filter"], "gradient_pair": pair.GRADIENT_LAUNCHES,
         "d2_sum": pair.D2_SUM_LAUNCHES, "lap_rhs": adv_lap.LAP_LAUNCHES,
         "curl_rhs": vec.CURL_LAUNCHES, **dist.LAUNCHES,
+        "adv_pair": pair.ADV_PAIR_LAUNCHES, "compact_strided_rk": modes["rk"],
     }
 
 
@@ -328,6 +357,7 @@ def zero_launch_counts() -> None:
     lane.LAUNCHES = strided.LAUNCHES = adv_lap.LAUNCHES = adv_lap.LAUNCHES3 = 0
     megastep.LAUNCHES = vec.LAUNCHES = pair.LAUNCHES = 0
     pair.GRADIENT_LAUNCHES = pair.D2_SUM_LAUNCHES = adv_lap.LAP_LAUNCHES = vec.CURL_LAUNCHES = 0
+    pair.ADV_PAIR_LAUNCHES = 0
     for modes in (lane.MODE_LAUNCHES, strided.MODE_LAUNCHES, dist.LAUNCHES):
         for mode in modes:
             modes[mode] = 0
@@ -341,21 +371,25 @@ def path(**launches) -> dict:
 # Least bytes each kernel must move per point at the timed call (f32 inputs
 # read once, outputs written once: K5 3 reads and 6 writes, K6 3 and 1,
 # pair_subtract 3 and 2, the K2 modes 1 + one per mul/acc and 1, K7 1 and 2,
-# K8 and K9 1 and 1, K10 3 and 3), and the operations it does per point,
-# counted from its arithmetic (line RHS ~17, forward sweep 4, backward 5; K6
-# and K9 two line solves, T_z and B_z; K5 three K3s; K7 and K8 two line
-# solves; K10 four, two T_z and two B_z; a filter's line RHS ~21 with its
-# three offsets).
+# K8 and K9 1 and 1, K10 3 and 3, K13 3 and 1, K2's rk mode 4 (r, adv, fin,
+# q) and 2), and the operations it does per point, counted from its
+# arithmetic (line RHS ~17, forward sweep 4, backward 5; K6 and K9 two line
+# solves, T_z and B_z; K5 three K3s; K7 and K8 two line solves; K10 four,
+# two T_z and two B_z; a filter's line RHS ~21 with its three offsets; K13
+# two line solves and 3 for the weights; K2 rk the solve's 9 and 6 for the
+# update).
 BYTES_PER_POINT = {"compact_lane": 8, "compact_strided": 8, "adv_lap": 20, "rk3_mega": 28,
                    "compact_strided_solve": 8, "compact_strided_acc": 12,
                    "compact_strided_mul": 16, "pair_subtract": 20, "adv_lap3": 36,
                    "div_rhs": 16, "compact_lane_filter": 8, "compact_strided_filter": 8,
-                   "gradient_pair": 12, "d2_sum": 8, "lap_rhs": 8, "curl_rhs": 24}
+                   "gradient_pair": 12, "d2_sum": 8, "lap_rhs": 8, "curl_rhs": 24,
+                   "adv_pair": 16, "compact_strided_rk": 24}
 FLOPS_PER_POINT = {"compact_lane": 26, "compact_strided": 26, "adv_lap": 127, "rk3_mega": 44,
                    "compact_strided_solve": 9, "compact_strided_acc": 27,
                    "compact_strided_mul": 28, "pair_subtract": 54, "adv_lap3": 381,
                    "div_rhs": 64, "compact_lane_filter": 30, "compact_strided_filter": 30,
-                   "gradient_pair": 52, "d2_sum": 53, "lap_rhs": 64, "curl_rhs": 128}
+                   "gradient_pair": 52, "d2_sum": 53, "lap_rhs": 64, "curl_rhs": 128,
+                   "adv_pair": 55, "compact_strided_rk": 15}
 
 
 def emit(obj) -> None:
@@ -591,6 +625,7 @@ def phase_kernels(dev) -> dict:
     _derivative_cases(stats, failures, FILTERS, fields, g, dev)
     _slice4_cases(stats, failures, g, dev)
     _slice5_cases(stats, failures, g, dev)
+    _slice6_cases(stats, failures, g, dev)
     if failures:
         raise AssertionError("kernel vs plain over the gate: " + "; ".join(failures))
     return stats
@@ -704,25 +739,27 @@ def _model(dev, scheme, method, dtype, second_derivative=False, nu=NU, generic=F
     return AdvectionDiffusion(derivs, nu=nu), f0.to(dtype), tuple(v.to(dtype) for v in u)
 
 
-def _ns_velocity(dev, dtype):
-    """The Navier–Stokes probe at 256^3: Taylor–Green (whose uz = 0 would
-    hide K4's uz * dz term and K6's z parts) plus a seeded smooth
-    perturbation in every component, projected in float64 and cast to
-    ``dtype``."""
-    c = coordinates(N, device=dev, dtype=torch.float64)
-    Z, Y, X = c[:, None, None], c[None, :, None], c[None, None, :]
+def _ns_velocity(dev, dtype, coords=None, spacing=2 * math.pi / N):
+    """The Navier–Stokes probe, at 256^3 or on the (z, y, x) coordinates
+    ``coords``: Taylor–Green (whose uz = 0 would hide K4's uz * dz term and
+    K6's z parts) plus a seeded smooth perturbation in every component,
+    projected in float64 and cast to ``dtype``."""
+    if coords is None:
+        c = coordinates(N, device=dev, dtype=torch.float64)
+        coords = (c, c, c)
+    z, y, x = coords
+    Z, Y, X = z[:, None, None], y[None, :, None], x[None, None, :]
     amp = np.random.default_rng(FIELD_SEED).uniform(-0.2, 0.2, (3, 3))
     u = [v + a * torch.sin(Z + b) * torch.cos(X + d) + b * torch.cos(Y + a) * torch.sin(Z)
-         for v, (a, b, d) in zip(taylor_green(c, c, c), amp)]
-    u = poisson.project(tuple(v.contiguous() for v in u), 2 * math.pi / N, ct.SCHEME4_PERIODIC,
+         for v, (a, b, d) in zip(taylor_green(z, y, x), amp)]
+    u = poisson.project(tuple(v.contiguous() for v in u), spacing, ct.SCHEME4_PERIODIC,
                         method="spectral")
     return tuple(v.to(dtype) for v in u)
 
 
-def _velocity_model(kind, dev, method, nu):
+def _velocity_model(kind, dev, method, nu, dx=2 * math.pi / N):
     """"ns", "burgers", or "burgers_generic" (Burgers without its fused
     substeps)."""
-    dx = 2 * math.pi / N
     if kind == "ns":
         return NavierStokes.single_device(dx, ct.SCHEME4_PERIODIC, nu=nu, method=method)
     derivs = Derivs.single_device(dx, ct.SCHEME4_PERIODIC, method, second_derivative=True)
@@ -875,6 +912,8 @@ def phase_diagnostics(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts()
+    # the shell sum runs in a fixed order: a second call gives the same bits
+    spectrum_bitwise = torch.equal(spec, spectra.energy_spectrum(u, 2 * math.pi / N))
 
     ref_u = _velocity_model("ns", dev, "matmul", NU_NS).run(u64, DT, STEPS)
     ref = _diagnostics(ref_u, scheme, "matmul")
@@ -888,14 +927,15 @@ def phase_diagnostics(dev) -> dict:
     finite = all(bool(torch.isfinite(t).all().item()) for t in (*u, enst, diss, spec))
     ok = (finite and err_u <= SLICE_GATE and max(rel.values()) <= SLICE_GATE
           and parseval <= SLICE_GATE and spec.shape == ref[2].shape
-          and launches == DIAGNOSTICS_PATH)
+          and launches == DIAGNOSTICS_PATH and spectrum_bitwise)
     emit({"phase": "slice", "slice": "slice4_diagnostics",
           "case": f"NavierStokes {scheme.name} {N}^3 f32, {STEPS} RK3 steps dt={DT} nu={NU_NS}, "
           "then enstrophy, dissipation, energy_spectrum", "method": "auto",
           "rel_err_u": err_u, "rel_err": rel, "gate": SLICE_GATE,
           "enstrophy": enst.item(), "dissipation": diss.item(),
           "two_nu_enstrophy": 2 * NU_NS * enst.item(), "n_shells": spec.shape[0],
-          "sum_E_vs_kinetic_energy": parseval, "finite": finite, "launches": launches,
+          "sum_E_vs_kinetic_energy": parseval, "energy_spectrum_bitwise_repeat": spectrum_bitwise,
+          "finite": finite, "launches": launches,
           "launches_expected": DIAGNOSTICS_PATH, "wall_s_incl_first_calls": wall, "ok": ok})
     if not ok:
         raise AssertionError("slice4_diagnostics failed: see its slice line")
@@ -957,6 +997,287 @@ def phase_vector_calculus(dev) -> dict:
     if not ok:
         raise AssertionError("slice4_vector_calculus failed: see its slice line")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Slice 6: the stepwise fused substep on long x-lines
+# ---------------------------------------------------------------------------
+
+# A periodic box elongated along x at the spacing 2 pi / 128 on every axis:
+# (nz, ny, nx) = (64, 128, 8192), 2^26 points, a box of 2 pi (0.5, 1, 64).
+# Two staged x-lines (K3, K5) take 65.6 KB there, past an x block's 48 KB;
+# one (K13, K9) takes 32.8 KB. The fields are the 256^3 slices' (Taylor–
+# Green, sin x) on coordinates that run 64 periods along x and one over the
+# box's length along z (sin 2z on its length pi, so that they are periodic
+# there).
+LONG = (64, 128, 8192)
+LONG_DX = 2 * math.pi / 128
+LONG_SPACING = (LONG_DX, LONG_DX, LONG_DX)
+RK3_SUBSTEPS = (("first", 0.0, 1.0 / 3.0), ("middle", -5.0 / 9.0, 15.0 / 16.0),
+                ("last", -153.0 / 128.0, 8.0 / 15.0))
+
+
+def _long_coords(dev, dtype=torch.float32):
+    nz, ny, nx = LONG
+    return (coordinates(nz, device=dev, dtype=dtype), coordinates(ny, device=dev, dtype=dtype),
+            coordinates(nx, device=dev, dtype=dtype, length=nx * LONG_DX))
+
+
+def _spacing(shape):
+    return LONG_SPACING if tuple(shape) == LONG else tuple(2 * math.pi / n for n in shape)
+
+
+def _slice6_cases(stats, failures, g, dev):
+    """K13 for the four d1 schemes and K2's rk mode for the four d2 schemes
+    (first, middle and last substep, at nu = 1e-3 and dt * nu = 1)."""
+    for shape in (LONG, (N, N, N), RAGGED):
+        dz, dy, dx = _spacing(shape)
+        f, ux, uy = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        f64, ux64, uy64 = f.double(), ux.double(), uy.double()
+        for scheme in D1_SCHEMES:
+            _compare(stats, "adv_pair", f"{scheme.name} {tuple(shape)}",
+                     pair.advection_pair(f, ux, uy, dy, dx, scheme),
+                     pair.advection_pair_ref(f64, ux64, uy64, dy, dx, scheme), failures)
+        del f, ux, uy, f64, ux64, uy64
+    for shape in (LONG, (N, N, N)):
+        r, adv, fin, q = (torch.randn(shape, generator=g, device=dev) for _ in range(4))
+        d64 = [t.double() for t in (r, adv, fin, q)]
+        for scheme in D2_SCHEMES:
+            for rk in (RK3_MID, RK3_DIFFUSIVE):
+                for case, a, b in RK3_SUBSTEPS:
+                    qq, qq64 = (None, None) if case == "first" else (q, d64[3])
+                    kw = dict(a=a, b=b, dt=rk["dt"], nu=rk["nu"])
+                    label = f"{scheme.name} {tuple(shape)} {case} nu={rk['nu']:g}"
+                    got = strided.rk3_solve_update(r, adv, qq, fin, scheme, **kw)
+                    ref = strided.rk3_solve_update_ref(d64[0], d64[1], qq64, d64[2], scheme, **kw)
+                    for out, g_, r_ in zip(("q'", "f'"), got, ref):
+                        _compare(stats, "compact_strided_rk", f"{out} {label}", g_, r_, failures,
+                                 _gate(scheme))
+        del r, adv, fin, q, d64
+
+
+def _substep_state(dev, shape, dtype):
+    """(f, u, spacing) of the advection–diffusion slices at ``shape``."""
+    if tuple(shape) == LONG:
+        z, y, x = _long_coords(dev, torch.float64)
+    else:
+        z = y = x = coordinates(shape[0], device=dev, dtype=torch.float64)
+    u = tuple(c.to(dtype) for c in taylor_green(z, y, x))
+    return sine_field(z, y, x)[0].to(dtype), u, _spacing(shape)
+
+
+# the three substeps of one RK3 step through fused_step's stepwise routes
+STEPWISE_PATH = path(adv_pair=3, lap_rhs=3, compact_strided_mul=3, compact_strided_rk=3)
+
+
+def phase_stepwise(dev, shape) -> dict:
+    """One RK3 step's three substeps through ``fused_step.stepwise_head`` and
+    ``stepwise_tail`` (K13 + K9 + K2 mul+acc + K2 rk) at ``shape`` f32, each
+    substep held against the plain float64 substep (merged head and K4's
+    plain versions) and against the substep of ``head_route`` + K4 (K3 where
+    it fits, else K13) on the same inputs: f' at 1e-5 of max|f'|, q' (the
+    increment over b) at 1e-3 of max|q'|."""
+    s1, s2 = FUSED_PAIRS[0]
+    f, u, spacing = _substep_state(dev, shape, torch.float32)
+    ux, uy, uz = u
+    dz = spacing[0]
+    ins, outs = [], []
+
+    def run():
+        fc, q = f, None
+        for case, a, b in RK3_SUBSTEPS:
+            ins.append((fc, q, a, b))
+            axy, r = fused_step.stepwise_head(fc, ux, uy, spacing, s1, s2)
+            q, fc = fused_step.stepwise_tail(fc, r, axy, uz, q, s1, s2, dz, a=a, b=b, dt=DT,
+                                             nu=NU, last=False)
+            outs.append((q, fc))
+
+    _, launches = _run_path(run)
+    head = fused_step.head_route(f, s1, s2)  # K3 where it fits, else K13 + K9
+    u64 = tuple(c.double() for c in u)
+    errors, ok = {}, launches == STEPWISE_PATH
+    for (case, _, _), (fin, qin, a, b), (qo, fo) in zip(RK3_SUBSTEPS, ins, outs):
+        axy, r = head(fin, ux, uy, spacing, s1, s2)
+        k4 = fused_step.mega_tail(fin, r, axy, uz, qin, s1, s2, dz, a=a, b=b, dt=DT, nu=NU)
+        del axy, r
+        f64 = fin.double()
+        axy, r = adv_lap.adv_lap_rhs_ref(f64, u64[0], u64[1], *spacing, s1, s2)
+        plain = megastep.rk3_mega_ref(f64, r, axy, u64[2], None if qin is None else qin.double(),
+                                      s1, s2, dz, a=a, b=b, dt=DT, nu=NU)
+        del axy, r, f64
+        for against, (q_ref, f_ref) in (("plain_f64", plain), (head.__name__ + " + K4", k4)):
+            ef = ((fo.double() - f_ref.double()).abs().max() / f_ref.abs().max()).item()
+            eq = ((qo.double() - q_ref.double()).abs().max() / q_ref.abs().max()).item()
+            errors[f"{case} vs {against}"] = {"rel_err_f": ef, "rel_err_q": eq}
+            ok = ok and ef <= SLICE_GATE and eq <= INC_GATE
+        del plain, k4
+    finite = all(bool(torch.isfinite(t).all().item()) for pair_ in outs for t in pair_)
+    ok = ok and finite
+    name = f"slice6_stepwise_{'x'.join(map(str, shape))}"
+    emit({"phase": "slice", "slice": name,
+          "case": f"stepwise substep (K13 + K9 + K2 mul+acc + K2 rk) {s1.name}+{s2.name} "
+          f"{tuple(shape)} f32, the three substeps of one RK3 step dt={DT} nu={NU}",
+          "errors": errors, "gate_f": SLICE_GATE, "gate_q": INC_GATE, "finite": finite,
+          "launches": launches, "launches_expected": STEPWISE_PATH, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} failed: see its slice line")
+    return {name: launches}
+
+
+# per step at LONG: every substep on the stepwise head (K13 + K9) and K4;
+# Burgers and Navier–Stokes take the scalar substep per component (K5 does
+# not fit), and Navier–Stokes projects after each stage
+LONG_AD_PATH = path(adv_pair=3 * STEPS, lap_rhs=3 * STEPS, rk3_mega=3 * STEPS)
+LONG_BURGERS_PATH = path(adv_pair=9 * STEPS, lap_rhs=9 * STEPS, rk3_mega=9 * STEPS)
+LONG_NS_PATH = {**LONG_BURGERS_PATH, "div_rhs": 3 * STEPS, "compact_strided_solve": 3 * STEPS,
+                "pair_subtract": 3 * STEPS, "compact_strided_acc": 3 * STEPS}
+LONG_SLICES = {
+    # name: (model, nu, launches expected over STEPS steps)
+    "slice6_advection_diffusion_long": ("advection_diffusion", NU, LONG_AD_PATH),
+    "slice6_burgers_long": ("burgers", NU_BURGERS, LONG_BURGERS_PATH),
+    "slice6_ns_long": ("ns", NU_NS, LONG_NS_PATH),
+}
+
+
+def _long_model(kind, dev, method, nu):
+    """A model of the long-x configuration, through its normal entry point."""
+    if kind == "advection_diffusion":
+        derivs = Derivs.single_device(LONG_SPACING, ct.SCHEME4_PERIODIC, method,
+                                      second_derivative=True)
+        return AdvectionDiffusion(derivs, nu=nu)
+    return _velocity_model(kind, dev, method, nu, dx=LONG_SPACING)
+
+
+def _long_state(kind, dev):
+    """The model's float32 state at LONG: (f, u) for advection–diffusion,
+    u else."""
+    if kind == "advection_diffusion":
+        f, u, _ = _substep_state(dev, LONG, torch.float32)
+        return f, u
+    u = _ns_velocity(dev, torch.float64, _long_coords(dev, torch.float64), LONG_SPACING)
+    return tuple(c.float() for c in u)
+
+
+def _long_run(model, state, steps):
+    """``steps`` RK3 steps of ``state``; the fields it returns, as a tuple."""
+    if isinstance(model, AdvectionDiffusion):
+        return (model.run(state[0], state[1], DT, steps),)
+    return tuple(model.run(state, DT, steps))
+
+
+def _generic_model(model, nu):
+    """The same model with its fused substeps taken out: the generic step
+    the JAX models run where no fused head fits."""
+    derivs = _generic(model.derivs)
+    if isinstance(model, NavierStokes):
+        return NavierStokes(derivs, LONG_SPACING, ct.SCHEME4_PERIODIC, nu=nu)
+    return type(model)(derivs, nu=nu)
+
+
+def phase_long_slice(dev, name) -> dict:
+    """5 steps of a model at LONG f32 through method="auto" (the stepwise
+    head, K4 tail) against the same steps on the plain float64 path, at the
+    slices' gates, with the launch counts of the run."""
+    kind, nu, want = LONG_SLICES[name]
+    model = _long_model(kind, dev, "auto", nu)
+    state = _long_state(kind, dev)
+    out, launches = _run_path(lambda: _long_run(model, state, STEPS))
+    # both runs start from the same float32 state
+    if kind == "advection_diffusion":
+        ref_state = (state[0].double(), tuple(c.double() for c in state[1]))
+        start = (ref_state[0],)
+    else:
+        ref_state = start = tuple(c.double() for c in state)
+    ref = _long_run(_long_model(kind, dev, "matmul", nu), ref_state, STEPS)
+    scale = max(c.abs().max().item() for c in ref)
+    err = max((a.double() - b).abs().max().item() for a, b in zip(out, ref))
+    inc = max((b - a).abs().max().item() for a, b in zip(start, ref))
+    finite = all(bool(torch.isfinite(c).all().item()) for c in out)
+    ok = (finite and all(c.shape == LONG and c.dtype == torch.float32 for c in out)
+          and err / scale <= SLICE_GATE and err / inc <= INC_GATE and launches == want)
+    line = {"phase": "slice", "slice": name,
+            "case": f"{type(model).__name__} {ct.SCHEME4_PERIODIC.name} {LONG} f32 "
+            f"(spacing 2 pi / 128), {STEPS} RK3 steps dt={DT} nu={nu}", "method": "auto",
+            "max_abs_err_vs_f64_plain": err, "rel_err": err / scale, "gate": SLICE_GATE,
+            "rel_err_of_increment": err / inc, "increment_gate": INC_GATE, "finite": finite,
+            "launches": launches, "launches_expected": want}
+    if kind == "ns":
+        speed = torch.sqrt(sum(c * c for c in out)).max().item()
+        line["rel_divergence_after"] = model.divergence(out).abs().max().item() / speed
+        ok = ok and line["rel_divergence_after"] <= DIV_GATE
+    emit({**line, "ok": ok})
+    if not ok:
+        raise AssertionError(f"{name} failed: see its slice line")
+    return launches
+
+
+def _long_times(dev, smi) -> dict:
+    """CUDA-event medians at LONG f32 (and K13, K2 rk at 256^3), in turns:
+    K13 and K2 rk with their plain versions and their unfused compositions
+    (row 16: K7, two multiplies and an add; row 7: K2 solve_only and the
+    elementwise update), the stepwise tail against K4, and each model's step
+    against its generic step at the same shape."""
+    g = torch.Generator(device=dev).manual_seed(20261020)
+    s1, s2 = FUSED_PAIRS[0]
+    times = {}
+    for shape in (LONG, (N, N, N)):
+        dz, dy, dx = _spacing(shape)
+        key = "x".join(map(str, shape))
+        f, ux, uy, uz, r, q = (torch.randn(shape, generator=g, device=dev) for _ in range(6))
+        times[f"adv_pair_{key}"] = _turns(lambda: pair.advection_pair_ref(f, ux, uy, dy, dx, s1),
+                                          lambda: pair.advection_pair(f, ux, uy, dy, dx, s1))
+
+        def k7_unfused():
+            fx, fy = pair.gradient_pair(f, dy, dx, s1)
+            return ux * fx + uy * fy
+
+        t = _turns(k7_unfused, lambda: pair.advection_pair(f, ux, uy, dy, dx, s1))
+        times[f"adv_pair_{key}"]["unfused_ms"] = t["plain_ms"]
+        times[f"adv_pair_{key}"]["unfused_readings_ms"] = [t["kernel_readings_ms"],
+                                                           t["plain_readings_ms"]]
+        rk = dict(a=RK3_MID["a"], b=RK3_MID["b"], dt=DT, nu=NU)
+        adv = strided.strided_derivative(f, dz, s1, 0, mul=uz, acc=ux)
+        times[f"compact_strided_rk_{key}"] = _turns(
+            lambda: strided.rk3_solve_update_ref(r, adv, q, f, s2, **rk),
+            lambda: strided.rk3_solve_update(r, adv, q, f, s2, **rk))
+
+        def rk_unfused():
+            qn = rk["a"] * q + DT * (NU * strided.leading_solve(r, s2) - adv)
+            return qn, f + rk["b"] * qn
+
+        t = _turns(rk_unfused, lambda: strided.rk3_solve_update(r, adv, q, f, s2, **rk))
+        times[f"compact_strided_rk_{key}"]["unfused_ms"] = t["plain_ms"]
+        times[f"compact_strided_rk_{key}"]["unfused_readings_ms"] = [t["kernel_readings_ms"],
+                                                                     t["plain_readings_ms"]]
+        if shape == LONG:
+            axy = adv_lap.lap_rhs(f, dz, dy, dx, s2)  # any field: the tails' inputs
+            t = _turns(lambda: fused_step.mega_tail(f, r, axy, uz, q, s1, s2, dz, **rk),
+                       lambda: fused_step.stepwise_tail(f, r, axy, uz, q, s1, s2, dz, **rk))
+            times["stepwise_tail_vs_k4_long"] = {
+                "stepwise_tail_ms": t["kernel_ms"], "k4_ms": t["plain_ms"],
+                "readings_ms": [t["kernel_readings_ms"], t["plain_readings_ms"]]}
+            times["lap_rhs_long_ms"] = cuda_time_ms(lambda: adv_lap.lap_rhs(f, dz, dy, dx, s2))
+            times["dfdx_long_ms"] = cuda_time_ms(lambda: ct.dfdx(f, dx, s1))
+            out = torch.empty_like(f)
+            times["copy_long_ms"] = cuda_time_ms(lambda: out.copy_(f))
+            del axy, out
+        del f, ux, uy, uz, r, q, adv
+    steps = {}
+    for name, (kind, nu, _) in LONG_SLICES.items():
+        model = _long_model(kind, dev, "auto", nu)
+        generic = _generic_model(model, nu)
+        state = _long_state(kind, dev)
+        step = lambda m: (lambda: _long_run(m, state, 1))
+        p1 = cuda_time_ms(step(generic), warmup=1, iters=3)
+        k1 = cuda_time_ms(step(model), warmup=1, iters=3)
+        k2 = cuda_time_ms(step(model), warmup=1, iters=3)
+        p2 = cuda_time_ms(step(generic), warmup=1, iters=3)
+        steps[name] = {"step_ms": (k1 + k2) / 2, "generic_step_ms": (p1 + p2) / 2,
+                       "readings_ms": [[k1, k2], [p1, p2]]}
+        del model, generic, state
+    emit({"phase": "long_times", "device": smi, "shape": list(LONG), "dtype": "float32",
+          "schemes": [s1.name, s2.name], **times, "steps": steps})
+    return times
 
 
 # ---------------------------------------------------------------------------
@@ -1594,7 +1915,7 @@ def phase_times(dev, smi) -> dict:
     return {**times, "copy_floor_ms": copy_ms}
 
 
-def _summary(stats, launches, times, dist_times) -> list:
+def _summary(stats, launches, times, dist_times, long_times) -> list:
     pts = N**3
     copy_rate = 2 * 4 * pts / (times["copy_floor_ms"] * 1e-3)  # bytes/s, this run
     timed = {
@@ -1652,6 +1973,28 @@ def _summary(stats, launches, times, dist_times) -> list:
             "library_ms": mean("library_ms"),
             "timed": [f"{k} per launch, shard {dist_times[k]['shape']} f32" for k in keys],
         })
+    # the stepwise substep's kernels at LONG, the shape whose path runs them
+    key = "x".join(map(str, LONG))
+    for name in ("adv_pair", "compact_strided_rk"):
+        t = long_times[f"{name}_{key}"]
+        nbytes = BYTES_PER_POINT[name] * math.prod(LONG)
+        byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        op_ms = FLOPS_PER_POINT[name] * math.prod(LONG) / F32_FLOPS_PER_S * 1e3
+        rows.append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": sum(by_path[name] for by_path in launches.values()),
+            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()
+                                 if by_path[name]},
+            "max_abs_err": stats[name]["max_abs_err"],
+            "max_rel_err": stats[name]["max_rel_err"],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "copy_bound_ms": nbytes / (2 * 4 * math.prod(LONG)) * long_times["copy_long_ms"],
+            "library_ms": None,
+            "unfused_ms": t["unfused_ms"],
+            "timed": [f"{name} {LONG} f32"],
+        })
     return rows
 
 
@@ -1667,11 +2010,15 @@ def main() -> None:
     launches["slice4_diagnostics"] = phase_diagnostics(dev)
     launches.update(phase_dist_paths(dev))
     launches.update({name: phase_dist_slice(dev, name) for name in DIST_SLICES})
+    for shape in (LONG, (N, N, N)):
+        launches.update(phase_stepwise(dev, shape))
+    launches.update({name: phase_long_slice(dev, name) for name in LONG_SLICES})
     times = phase_times(dev, smi)
     dist_times = phase_dist_times(dev, smi)
+    long_times = _long_times(dev, smi)
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    emit({"kernels": _summary(stats, launches, times, dist_times)})
+    emit({"kernels": _summary(stats, launches, times, dist_times, long_times)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

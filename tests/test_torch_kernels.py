@@ -1,7 +1,8 @@
 """The CUDA kernels K1 (compact_lane), K2 (compact_strided, with its acc,
-mul and solve_only epilogues), K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3),
+mul, solve_only and rk modes), K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3),
 K6 (div_rhs), pair_subtract (K1 + K2 with acc), K7 (gradient_pair), K8
-(d2_sum), K9 (lap_rhs) and K10 (curl_rhs); K1 and K2 also in filter mode.
+(d2_sum), K9 (lap_rhs), K10 (curl_rhs) and K13 (adv_pair); K1 and K2 also
+in filter mode.
 
 A CUDA kernel cannot run on the CPU, so its arithmetic is held here in two
 ways:
@@ -21,13 +22,17 @@ sources.
 """
 
 import ctypes
+import dataclasses
+import math
 
 import numpy as np
 import pytest
 import torch
 
 import cfd_tpu_torch as ct
-from cfd_tpu_torch.models import NavierStokes, benchmark_field, coordinates, taylor_green
+from cfd_tpu_torch.models import (
+    Burgers, Derivs, NavierStokes, benchmark_field, coordinates, taylor_green,
+)
 from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, megastep, pair, strided, vec
 from cfd_tpu_torch.schemes import rhs_matrix
 
@@ -445,7 +450,7 @@ def test_navier_stokes_step_runs_the_kernels(cuda):
     assert [a - b for a, b in zip(after[:5], before[:5])] == [0, 0, 9, 3, 3]
     assert after[5] - before[5] == 3
     assert {k: after[6][k] - before[6][k] for k in after[6]} == {
-        "derivative": 0, "filter": 0, "acc": 3, "mul": 0, "solve": 3}
+        "derivative": 0, "filter": 0, "acc": 3, "mul": 0, "solve": 3, "rk": 0}
     ref_ns = NavierStokes.single_device(spacing, ct.SCHEME4_PERIODIC, nu=1e-2, method="matmul")
     ref = ref_ns.step(tuple(v.double() for v in u), 1e-3)
     scale = max(v.abs().max().item() for v in ref)
@@ -601,3 +606,69 @@ if __name__ == "__main__":
         floor, sweep, full = _d2_wall_budget(s, planes=256)
         print(f"{s.name}: f32 RHS rounding {floor:.3e}, + f32 sweeps {sweep:.3e}, "
               f"+ f32 RHS formation {full:.3e} (gate {D2_WALL_GATE:g})")
+
+
+# K13 and K2's rk mode: the stepwise fused substep (ops/fused_step.py)
+RK3_CASES = {"first": (0.0, 1.0 / 3.0, False), "middle": (-5.0 / 9.0, 15.0 / 16.0, True),
+             "last": (-153.0 / 128.0, 8.0 / 15.0, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 16, 8192), (5, 37, 100), (2, 16, 12278)])
+@pytest.mark.parametrize("scheme", D1_SCHEMES, ids=[s.name for s in D1_SCHEMES])
+def test_advection_pair_kernel_matches_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(7)
+    f, ux, uy = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    before = pair.ADV_PAIR_LAUNCHES
+    got = pair.advection_pair(f, ux, uy, 0.05, 0.04, scheme)
+    torch.cuda.synchronize()
+    assert pair.ADV_PAIR_LAUNCHES == before + 1
+    ref = pair.advection_pair_ref(f.double(), ux.double(), uy.double(), 0.05, 0.04, scheme)
+    assert _rel_err(got, ref) <= F32_GATE
+
+
+@pytest.mark.gpu
+def test_advection_pair_kernel_rejects_lines_past_its_shared_memory(cuda):
+    f = torch.zeros((2, 8, 12279), device=cuda)
+    with pytest.raises(RuntimeError, match="adv_pair launch failed"):
+        pair.advection_pair(f, f, f, 0.1, 0.1, ct.SCHEME4_PERIODIC)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nu", [1e-3, 1e3], ids=["nu1e-3", "dt_nu1"])
+@pytest.mark.parametrize("case", list(RK3_CASES))
+@pytest.mark.parametrize("scheme", D2_SCHEMES, ids=[s.name for s in D2_SCHEMES])
+def test_rk3_solve_update_kernel_matches_plain(cuda, scheme, case, nu):
+    """dt * nu = 1 makes the solve O(1) of q' and f'."""
+    a, b, has_q = RK3_CASES[case]
+    g = torch.Generator(device="cpu").manual_seed(8)
+    r, adv, fin, q = (torch.randn((64, 9, 33), generator=g).to(cuda) for _ in range(4))
+    q = q if has_q else None
+    kw = dict(a=a, b=b, dt=1e-3, nu=nu)
+    before = strided.MODE_LAUNCHES["rk"]
+    got = strided.rk3_solve_update(r, adv, q, fin, scheme, **kw)
+    torch.cuda.synchronize()
+    assert strided.MODE_LAUNCHES["rk"] == before + 1
+    ref = strided.rk3_solve_update_ref(r.double(), adv.double(),
+                                       None if q is None else q.double(), fin.double(), scheme, **kw)
+    for g_, r_ in zip(got, ref):
+        assert _rel_err(g_, r_) <= _gate(scheme)
+
+
+@pytest.mark.gpu
+def test_burgers_takes_the_stepwise_head_on_long_x_lines(cuda):
+    """(8, 16, 8192): K5 and K3 do not fit, so each component's substep is
+    K13 + K9 + K4; the step matches the generic step."""
+    shape, dx = (8, 16, 8192), 2 * math.pi / 16
+    g = torch.Generator(device="cpu").manual_seed(9)
+    u = tuple((0.5 * torch.randn(shape, generator=g)).to(cuda) for _ in range(3))
+    derivs = Derivs.single_device(dx, ct.SCHEME4_PERIODIC, "auto", second_derivative=True)
+    before = (pair.ADV_PAIR_LAUNCHES, adv_lap.LAUNCHES, adv_lap.LAUNCHES3)
+    got = Burgers(derivs, nu=1e-2).step(u, 1e-4)
+    torch.cuda.synchronize()
+    assert pair.ADV_PAIR_LAUNCHES == before[0] + 9
+    assert (adv_lap.LAUNCHES, adv_lap.LAUNCHES3) == before[1:]
+    generic = dataclasses.replace(derivs, fused_substep=None, fused_substep_vec=None)
+    want = Burgers(generic, nu=1e-2).step(u, 1e-4)
+    scale = max(c.abs().max().item() for c in want)
+    assert max((a - b).abs().max().item() for a, b in zip(got, want)) <= 1e-5 * scale
