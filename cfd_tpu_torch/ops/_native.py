@@ -167,9 +167,9 @@ def library() -> ctypes.CDLL:
     lib.cfd_curl_rhs.restype = i32
     lib.cfd_rk3_mega.argtypes = [p] * 9 + [coef, coef, f32, f32, f32, f32, i32, i64, p]
     lib.cfd_rk3_mega.restype = i32
-    lib.cfd_lane_dist.argtypes = [p] * 6 + [coef, i64, i32, i32, p]
+    lib.cfd_lane_dist.argtypes = [p] * 6 + [coef, i64, i32, i32, i32, p]
     lib.cfd_lane_dist.restype = i32
-    lib.cfd_strided_dist.argtypes = [p] * 6 + [coef, i64, i64, i32, i32, p]
+    lib.cfd_strided_dist.argtypes = [p] * 6 + [coef, i64, i64, i32, i32, i32, p]
     lib.cfd_strided_dist.restype = i32
     lib.cfd_adv_pair.argtypes = [p] * 6 + [coef] * 2 + [i32, p]
     lib.cfd_adv_pair.restype = i32

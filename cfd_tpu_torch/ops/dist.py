@@ -32,6 +32,11 @@ On a CUDA float32 tensor:
   flat ``(n, B)`` lines: row 8 (``_fused_kernel``), the local solve of the
   generic distributed route.
 
+Both kernels stage a tile of lines in shared memory once and cut each
+line into ``parallel.dist_tables.pick_nb(nl)`` sub-blocks, one thread per
+sub-block's Thomas chain, joined by an intra-shard reduced solve
+(``csrc/dist_common.cuh``).
+
 On a CPU tensor each returns its plain version (``*_ref``): the stencil
 over the halo-extended line (``ops/rhs.py``), the shard's dense
 ``T_r^{-1}`` and the update. ``LAUNCHES`` counts kernel launches by kernel;
@@ -79,9 +84,8 @@ class ShardBlock:
 
     ``first``/``last``: the shard holds the line's physical left/right end
     of a non-periodic scheme, and its block the closure rows there.
-    ``w``, ``invd``, ``du``: Thomas factors of the block; ``tinv`` its
-    dense inverse; ``suh``/``slh``: the unit-load solutions that carry the
-    couplings to the neighbouring shards. Built by
+    ``tinv``: the block's dense inverse; ``suh``/``slh``: the unit-load
+    solutions that carry the couplings to the neighbouring shards. Built by
     ``parallel.dist_tables.shard_blocks``; hashed by identity, so cached
     launch tables key on it.
     """
@@ -89,16 +93,13 @@ class ShardBlock:
     scheme: CompactScheme
     first: bool
     last: bool
-    w: np.ndarray
-    invd: np.ndarray
-    du: np.ndarray
     tinv: np.ndarray
     suh: np.ndarray
     slh: np.ndarray
 
     @property
     def nl(self) -> int:
-        return self.w.shape[0]
+        return self.suh.shape[0]
 
 
 def require_full_f32(dtype: torch.dtype) -> None:
@@ -242,9 +243,27 @@ def solve_lines_tables(f, gl, gr, inv_dx, block: ShardBlock) -> torch.Tensor:
     return out
 
 
+def _chain_table(block: ShardBlock):
+    """(float64 table, nb): what K11/K12 read of a shard block cut into
+    ``nb = pick_nb(nl)`` sub-blocks. Point after point, the eight values a
+    chain reads at a row (``csrc/dist_common.cuh``, ``DIST_TAB_*``): the
+    sub-block factors invd and du, the intra unit loads uh and lh, the shard
+    unit loads suh and slh, the forward multiplier w and t0
+    (``parallel.dist_tables.local_block_tables``), between a zero row before
+    row 0 and one after row nl - 1 (the sweeps load a row ahead); then the
+    (2nb, 2nb) intra reduced inverse, row-major."""
+    from ..parallel.dist_tables import local_block_tables, pick_nb
+
+    nb = pick_nb(block.nl)
+    t = local_block_tables(block.scheme, block.nl, block.first, block.last, nb)
+    rows = np.stack([t.invd, t.du, t.uh, t.lh, block.suh, block.slh, t.w, t.t0], axis=1)
+    rows = np.pad(rows, ((1, 1), (0, 0)))
+    return np.concatenate([rows.ravel(), t.rinv.ravel()]), nb
+
+
 @functools.lru_cache(maxsize=256)
 def _launch_tables(block: ShardBlock, dx: float, device: torch.device):
-    """(Coef, float32 (5, nl) table: w, invd, du, suh, slh) for K11/K12.
+    """(Coef, float32 table, nb) for K11/K12: ``_chain_table`` rounded once.
 
     The Coef is the scheme's (``_native.kernel_tables``) with no cyclic
     part: the kernels read its stencil and closure rows, never its
@@ -252,15 +271,16 @@ def _launch_tables(block: ShardBlock, dx: float, device: torch.device):
     coef, _ = _native.kernel_tables(block.scheme, block.nl)
     coef = {**coef, "periodic": 0, "v0": 0.0, "vn": 0.0, "inv_denom": 0.0}
     scale = (1.0 / dx) ** block.scheme.derivative_order
-    tab = np.stack([block.w, block.invd, block.du, block.suh, block.slh])
-    return _native.fill_coef(coef, scale), torch.as_tensor(tab, dtype=torch.float32, device=device)
+    tab, nb = _chain_table(block)
+    return (_native.fill_coef(coef, scale),
+            torch.as_tensor(tab, dtype=torch.float32, device=device), nb)
 
 
 def _launch(kernel, f, hl, hr, ab, dx, block: ShardBlock, axis: int) -> torch.Tensor:
     """One launch of K11 (``axis`` last) or K12 on CUDA tensors."""
     _native.check_order(block.scheme)
     _native.check_operands(kernel, f, hl, hr, *((ab,) if ab is not None else ()))
-    coef, tab = _launch_tables(block, float(dx), f.device)
+    coef, tab, nb = _launch_tables(block, float(dx), f.device)
     out = torch.empty_like(f)
     outer = math.prod(f.shape[:axis])
     inner = math.prod(f.shape[axis + 1 :])
@@ -273,13 +293,13 @@ def _launch(kernel, f, hl, hr, ab, dx, block: ShardBlock, axis: int) -> torch.Te
         if kernel == "lane_dist":
             err = lib.cfd_lane_dist(
                 f.data_ptr(), hl.data_ptr(), hr.data_ptr(), ab.data_ptr(), out.data_ptr(),
-                tab.data_ptr(), ctypes.byref(coef), outer, int(block.first), int(block.last),
-                stream,
+                tab.data_ptr(), ctypes.byref(coef), outer, nb, int(block.first),
+                int(block.last), stream,
             )
         else:
             err = lib.cfd_strided_dist(
                 f.data_ptr(), hl.data_ptr(), hr.data_ptr(), ptr(ab), out.data_ptr(),
-                tab.data_ptr(), ctypes.byref(coef), outer, inner, int(block.first),
+                tab.data_ptr(), ctypes.byref(coef), outer, inner, nb, int(block.first),
                 int(block.last), stream,
             )
     _native.check(err, kernel)

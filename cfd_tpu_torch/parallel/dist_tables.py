@@ -16,25 +16,33 @@ the stencil folded in (``fv``) one dot against the raw end slab and the
 halo rows: the faces phase reads ~2K/nl of the field instead of running a
 full extra solve.
 
-The JAX module's other tables (the nb interleaved sub-block chains of its
-leading kernel, the 128-lane block inverses ``Tm``/``Mt``/``E`` and the
-intra-block corrections ``D``/``Qd`` of its lane kernels) feed the TPU's
-vector and matrix units; K11 and K12 solve each shard line with one Thomas
-sweep instead and need none of them.
+Inside the shard, K11 and K12 cut each line into ``nb`` sub-blocks and
+run their Thomas chains side by side, one thread each, as the JAX leading
+kernel does (``cfd_tpu/ops/pallas_leading.py``): ``local_block_tables``
+gives the sub-blocks' factors, the first rows of their inverses (the
+forward sweep's faces), their intra unit loads and the (2nb, 2nb) intra
+reduced inverse. The JAX module's 128-lane block inverses
+``Tm``/``Mt``/``E`` and intra-block corrections ``D``/``Qd`` feed the
+TPU's matrix unit, and the port needs none of them.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops import tridiag
 from ..ops.dist import ShardBlock
-from ..schemes import CompactScheme
+from ..schemes import CompactScheme, lhs_bands
 
-__all__ = ["ShardKernelTables", "shard_kernel_tables", "shard_blocks", "shard_table", "pick_nb"]
+__all__ = [
+    "BlockTables", "ShardKernelTables", "local_block_tables", "shard_kernel_tables",
+    "shard_blocks", "shard_table", "pick_nb",
+]
 
 _MIN_BZ = 32  # the JAX leading kernel's shortest sub-block
 # truncation threshold of the face functionals: the fast path is float32,
@@ -59,14 +67,112 @@ def shard_table(tables, name: str, r: int, dtype: torch.dtype, device) -> torch.
 
 
 def pick_nb(nl: int) -> int:
-    """The JAX leading kernel's sub-block count for a local line of ``nl``
-    rows (8, 4 or 2 chains of at least 32 rows, else 1). The port's K12
-    runs one chain; ``nb >= 2`` stays in the routing so that a shard shape
-    takes the route it takes in the JAX package."""
+    """The sub-block count of a local line of ``nl`` rows, the JAX leading
+    kernel's rule: 8, 4 or 2 chains of at least 32 rows, else 1. K11 and
+    K12 run that many chains a line; at least 32 rows keeps the closure
+    rows inside the first and last sub-block. ``nb >= 2`` is also the
+    routing condition of the JAX package's fast path along z."""
     for nb in (8, 4, 2):
         if nl % nb == 0 and nl // nb >= _MIN_BZ:
             return nb
     return 1
+
+
+class BlockTables(NamedTuple):
+    """Sub-block tables of one shard's local block, float64: ``w``,
+    ``invd``, ``du`` (nl,) each sub-block's Thomas factors, concatenated;
+    ``t0`` (nl,) the first rows of the sub-block inverses; ``uh``/``lh``
+    (nl,) the intra unit loads (zero where a sub-block has no neighbour on
+    that side); ``rinv`` (2nb, 2nb) the intra reduced inverse, columns 0
+    and 2nb - 1 zeroed."""
+
+    w: np.ndarray
+    invd: np.ndarray
+    du: np.ndarray
+    t0: np.ndarray
+    uh: np.ndarray
+    lh: np.ndarray
+    rinv: np.ndarray
+
+
+def _dense(dl, d, du):
+    return np.diag(d) + np.diag(dl[1:], -1) + np.diag(du[:-1], 1)
+
+
+@functools.lru_cache(maxsize=None)
+def local_block_tables(scheme: CompactScheme, nl: int, first: bool, last: bool,
+                       nb: int) -> BlockTables:
+    """The inner level of the substructuring: one shard's truncated local
+    block (closure rows where ``first``/``last``) cut into ``nb``
+    sub-blocks of ``nl // nb`` rows (the port of
+    ``cfd_tpu/parallel/dist_tables.py``'s ``local_block_tables``, without
+    its ``rsupport``: the kernels dot all 2nb faces).
+
+    A sub-block's forward sweep gives its last face (the final carry times
+    the last pivot) and, against ``t0``, its first; each chain's weights
+    are two rows of ``rinv`` dotted with the line's 2nb faces, and the
+    backward sweep adds them times ``uh``/``lh``. The sub-block couplings
+    are the interior ``alpha``: closure rows sit strictly inside the first
+    and last sub-block (``pick_nb``'s 32 rows)."""
+    if nl % nb:
+        raise ValueError(f"local extent {nl} not divisible into {nb} blocks")
+    parts = {k: [] for k in ("w", "invd", "du", "t0", "uh", "lh")}
+    for bands, tinv, uh_b, lh_b in _sub_blocks(scheme, nl, first, last, nb):
+        tf = tridiag.thomas_factor(*bands)
+        for k, v in (("w", tf.w), ("invd", tf.invd), ("du", tf.du), ("t0", tinv[0]),
+                     ("uh", uh_b), ("lh", lh_b)):
+            parts[k].append(v)
+    cat = {k: np.concatenate(v) for k, v in parts.items()}
+    rinv = _intra_reduced(np.stack(parts["uh"]), np.stack(parts["lh"]), nb)
+    return BlockTables(rinv=rinv, **cat)
+
+
+def _intra_reduced(uh: np.ndarray, lh: np.ndarray, nb: int) -> np.ndarray:
+    """The inverse of the intra-shard reduced interface matrix, from the
+    (nb, bz) unit loads. The block's outer ends are identity unknowns (their
+    couplings to the neighbouring shards belong to the outer level), hence
+    the identity end rows and the zeroed end columns."""
+    m = 2 * nb
+    R = np.zeros((m, m))
+    for b in range(nb):
+        er, orow = 2 * b, 2 * b + 1
+        R[er, er] = uh[b, 0]
+        R[er, orow] = lh[b, 0]
+        if b > 0:
+            R[er, er - 1] = -1.0
+        R[orow, er] = uh[b, -1]
+        R[orow, orow] = lh[b, -1]
+        if b < nb - 1:
+            R[orow, orow + 1] = -1.0
+    R[0, :] = 0.0
+    R[0, 0] = 1.0
+    R[m - 1, :] = 0.0
+    R[m - 1, m - 1] = 1.0
+    rinv = np.linalg.inv(R)
+    rinv[:, 0] = 0.0
+    rinv[:, -1] = 0.0
+    return rinv
+
+
+def _sub_blocks(scheme: CompactScheme, nl: int, first: bool, last: bool, nb: int):
+    """The local block's nb sub-blocks: per sub-block its bands with the
+    couplings to its neighbours cut, its dense inverse and its intra unit
+    loads (the responses to the cut couplings)."""
+    dl, d, du = lhs_bands(scheme, nl, first_block=first, last_block=last)
+    bz = nl // nb
+    out = []
+    for b in range(nb):
+        s, e = b * bz, (b + 1) * bz
+        sdl, sdu = dl[s:e].copy(), du[s:e].copy()
+        up_c = sdl[0]
+        lo_c = du[e - 1] if e < nl else 0.0
+        sdl[0] = 0.0
+        sdu[-1] = 0.0
+        tinv = np.linalg.inv(_dense(sdl, d[s:e], sdu))
+        uh_b = -up_c * tinv[:, 0] if b > 0 else np.zeros(bz)
+        lh_b = -lo_c * tinv[:, -1] if b < nb - 1 else np.zeros(bz)
+        out.append(((sdl, d[s:e].copy(), sdu), tinv, uh_b, lh_b))
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +246,6 @@ def shard_blocks(scheme: CompactScheme, n: int, p: int):
         first = r == 0 and not scheme.periodic
         last = r == p - 1 and not scheme.periodic
         blocks.append(ShardBlock(
-            scheme=scheme, first=first, last=last, w=t.tw[r], invd=t.tinvd[r], du=t.tdu[r],
-            tinv=t.tinv[r], suh=t.uh[r], slh=t.lh[r],
+            scheme=scheme, first=first, last=last, tinv=t.tinv[r], suh=t.uh[r], slh=t.lh[r],
         ))
     return tuple(blocks)

@@ -4,19 +4,31 @@ The CUDA counterpart of ``cfd_tpu/utils/timing.py``: warm up, then time
 each of ``iters`` calls between two events on the current stream and take
 the median. A call's time is the device time from its first to its last
 kernel; host time between calls is not in it.
+
+Host time inside a call is, when the card waits on it: the start event
+runs as soon as it is issued, and the call's first kernel only once the
+host has issued it. For a call whose kernels take less than the host's
+issue time (one launch of a small kernel through a Python wrapper),
+``queued=True`` issues every timed call behind a spin kernel that holds
+the card until the host has issued them all, so that each pair of events
+brackets device work alone.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
 import torch
 
 __all__ = ["cuda_time_ms"]
 
+_SPIN_HZ = 2e9  # spin cycles a second: above any H100 clock, so the spin only lasts longer
 
-def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3, iters: int = 20) -> float:
+
+def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3, iters: int = 20,
+                 queued: bool = False) -> float:
     """Median device milliseconds of one ``fn()`` call (needs a card)."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms times the card; no CUDA device here")
@@ -26,6 +38,13 @@ def cuda_time_ms(fn: Callable[[], object], *, warmup: int = 3, iters: int = 20) 
         (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         for _ in range(iters)
     ]
+    if queued:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0  # an upper bound of one call's issue time
+        torch.cuda._sleep(int(_SPIN_HZ * (2 * iters * host_s + 1e-3)))
     for start, end in pairs:
         start.record()
         fn()

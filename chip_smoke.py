@@ -34,8 +34,9 @@ script exits non-zero without printing the final line:
               schemes and K2's acc mode for the two non-periodic d2
               schemes, at 256^3 and at (40, 96, 200); K11 (x) and K12 (y, z),
               with the interface update, on the 128^3 shards of 256^3 over
-              (2, 2, 2) (first and last), an interior shard of 256^3 over 4
-              and an interior ragged (40, 96, 200) shard, and K12 without it
+              (2, 2, 2) (first and last), an interior shard of 256^3 over 4,
+              an interior ragged (40, 96, 200) shard and the last of three
+              96^3 shards, and K12 without it
               on the flat 64-point lines of 256^3 over 4 (first, interior,
               last), for a d1, a d2 and a filter scheme each periodic and
               not; K13 for the four d1 schemes at (64, 128, 8192), 256^3
@@ -119,9 +120,11 @@ script exits non-zero without printing the final line:
               the step of each configuration; the distributed dfdx, dfdy,
               dfdz on (2, 2, 2) whole and split into halo, faces, gather +
               reduced solve and kernels, beside the single-device
-              derivative; K11 and K12 per launch on one shard against their
-              plain versions and one torch.matmul with the shard's dense
-              operator; the distributed step on (2, 2, 2) and (1, 2, 2) in
+              derivative; K11 and K12 per launch on one shard (periodic,
+              and the closure shard of SCHEME4_D2) against their plain
+              versions and one torch.matmul with the shard's dense
+              operator, with the fraction of their bound they reach; the
+              distributed step on (2, 2, 2) and (1, 2, 2) in
               turns with the single-device fused step. Shards that share one
               card measure the distributed algorithm's overhead, not its
               scaling. At (64, 128, 8192) (and 256^3 for the kernels): K13
@@ -1327,14 +1330,20 @@ def _dist_inputs(g, dev, scheme, r, p, shape, axis):
 
 
 # (label, p, r, shard shape, axis): the 128^3 shards of 256^3 on (2, 2, 2)
-# (first and last along each axis), an interior shard of 256^3 over 4, and a
-# ragged shard, interior, of a line over 3
+# (first and last along each axis: 4 sub-blocks), an interior shard of
+# 256^3 over 4 (64-point lines, 2 sub-blocks), and a ragged shard,
+# interior, of a line over 3 (1, 2 and 4 sub-blocks)
 DIST_SHARDS = [
     ("(2,2,2) first", 2, 0, (N // 2,) * 3),
     ("(2,2,2) last", 2, 1, (N // 2,) * 3),
     ("4 shards, interior", 4, 1, None),
     ("ragged (40, 96, 200), 3 shards, interior", 3, 1, RAGGED),
 ]
+# the last of 3 shards of 96 points along every axis (2 sub-blocks of 48),
+# its inputs from a generator of its own, so that every other case draws
+# what it drew before the shard was added
+SUBBLOCK_SHARDS = [("nl = 96, 3 shards, last", 3, 2, (96, 96, 96))]
+SUBBLOCK_SEED = 20261023
 
 
 def _slice5_cases(stats, failures, g, dev):
@@ -1342,13 +1351,15 @@ def _slice5_cases(stats, failures, g, dev):
     the generic route's flat lines (without it), at the shard shapes the
     distributed derivatives give them, against their plain float64 versions."""
     d = 2 * math.pi / N
+    g_sub = torch.Generator(device=dev).manual_seed(SUBBLOCK_SEED)
+    shards = [(*shard, g) for shard in DIST_SHARDS] + [(*shard, g_sub) for shard in SUBBLOCK_SHARDS]
     for scheme in DIST_SCHEMES:
         gate = _dist_gate(scheme)
-        for label, p, r, shape in DIST_SHARDS:
+        for label, p, r, shape, gen in shards:
             for axis, kernel in ((2, "lane_dist"), (1, "strided_dist"), (0, "strided_dist")):
                 s = shape or tuple(N // 4 if a == axis else N for a in range(3))
                 block = shard_blocks(scheme, p * s[axis], p)[r]
-                f, hl, hr, ab = _dist_inputs(g, dev, scheme, r, p, s, axis)
+                f, hl, hr, ab = _dist_inputs(gen, dev, scheme, r, p, s, axis)
                 d64 = lambda *ts: tuple(t.double() for t in ts)
                 case = f"{'xyz'[2 - axis]} {scheme.name} {label} {s}"
                 if axis == 2:
@@ -1599,50 +1610,64 @@ def _shard_operator(block, dx, with_ab=True):
 
 
 def _dist_kernel_times(times, g, dev) -> None:
-    """K11 and K12 per launch on one 128^3 shard of 256^3 over (2, 2, 2)
-    (SCHEME4_PERIODIC), K12 on the flat lines of one shard of 256^3 over (1,
-    1, 4), each in turns with its plain float32 version, and the library
-    call: one torch.matmul with the shard's dense operator over the extended
-    input (halos and interface weights concatenated)."""
+    """K11 and K12 per launch on one 128^3 shard of 256^3 over (2, 2, 2):
+    the first shard of SCHEME4_PERIODIC, and the first shard of SCHEME4_D2
+    (keys ending in ``_d2_first``), whose chain 0 forms the closure rows; K12
+    on the flat lines of one shard of 256^3 over (1, 1, 4). Each in turns
+    with its plain float32 version, beside the library call (one
+    torch.matmul with the shard's dense operator over the extended input,
+    halos and interface weights concatenated) and its bound: the least
+    bytes (f, halos and weights read once, f' written once) over the
+    card's published rate, and the fraction of it the kernel reaches. A
+    launch takes less device time than its wrapper takes on the host, so
+    every call is timed queued behind a spin kernel (device time alone);
+    ``kernel_host_ms`` is the kernel's time with the host's issue time in
+    it, as the plain timer reads it."""
     d = 2 * math.pi / N
-    scheme = ct.SCHEME4_PERIODIC
-    block = shard_blocks(scheme, N, 2)[0]
     s = (N // 2,) * 3
-    M = _shard_operator(block, d).to(dev, torch.float32)
-    for key, axis in (("lane_dist", 2), ("strided_dist_y", 1), ("strided_dist_z", 0)):
-        f, hl, hr, ab = _dist_inputs(g, dev, scheme, 0, 2, s, axis)
-        ext = torch.cat([hl, f, hr, ab], axis)
-        if axis == 2:
-            plain = lambda: dist.lane_dist_derivative_ref(f, hl, hr, ab, d, block)
-            kernel = lambda: dist.lane_dist_derivative(f, hl, hr, ab, d, block)
-            lib = lambda: torch.matmul(ext, M.T)
-        else:
-            plain = lambda: dist.sublane_dist_derivative_ref(f, hl, hr, ab, d, block, axis=axis)
-            kernel = lambda: dist.sublane_dist_derivative(f, hl, hr, ab, d, block, axis=axis)
-            flat = ext.view(ext.shape[0], -1) if axis == 0 else ext
-            lib = lambda: torch.matmul(M, flat)
-        times[key] = _turns(plain, kernel)
-        times[key]["library_ms"] = cuda_time_ms(lib)
-        times[key]["bytes"] = 4 * (2 * f.numel() + hl.numel() + hr.numel() + ab.numel())
+
+    def record(key, plain, kernel, lib, f, *rest):
+        times[key] = _turns(plain, kernel, queued=True)
+        times[key]["library_ms"] = cuda_time_ms(lib, queued=True)
+        times[key]["kernel_host_ms"] = cuda_time_ms(kernel)
+        times[key]["bytes"] = 4 * (2 * f.numel() + sum(t.numel() for t in rest))
         times[key]["points"] = f.numel()
-        times[key]["shape"] = list(s)
+        times[key]["shape"] = list(f.shape)
+        times[key]["bound_ms"] = times[key]["bytes"] / MEM_BYTES_PER_S * 1e3
+        times[key]["bound_fraction"] = times[key]["bound_ms"] / times[key]["kernel_ms"]
+
+    for scheme, suffix in ((ct.SCHEME4_PERIODIC, ""), (ct.SCHEME4_D2, "_d2_first")):
+        block = shard_blocks(scheme, N, 2)[0]
+        M = _shard_operator(block, d).to(dev, torch.float32)
+        for key, axis in (("lane_dist", 2), ("strided_dist_y", 1), ("strided_dist_z", 0)):
+            f, hl, hr, ab = _dist_inputs(g, dev, scheme, 0, 2, s, axis)
+            ext = torch.cat([hl, f, hr, ab], axis)
+            if axis == 2:
+                plain = lambda: dist.lane_dist_derivative_ref(f, hl, hr, ab, d, block)
+                kernel = lambda: dist.lane_dist_derivative(f, hl, hr, ab, d, block)
+                lib = lambda: torch.matmul(ext, M.T)
+            else:
+                plain = lambda: dist.sublane_dist_derivative_ref(f, hl, hr, ab, d, block,
+                                                                 axis=axis)
+                kernel = lambda: dist.sublane_dist_derivative(f, hl, hr, ab, d, block, axis=axis)
+                flat = ext.view(ext.shape[0], -1) if axis == 0 else ext
+                lib = lambda: torch.matmul(M, flat)
+            record(key + suffix, plain, kernel, lib, f, hl, hr, ab)
+    scheme = ct.SCHEME4_PERIODIC
     block = shard_blocks(scheme, N, 4)[1]
     f, hl, hr, _ = _dist_inputs(g, dev, scheme, 1, 4, (N // 4, N * N), 0)
     ext = torch.cat([hl, f, hr])
     M = _shard_operator(block, d, with_ab=False).to(dev, torch.float32)
-    times["strided_dist_lines"] = _turns(
-        lambda: dist.solve_lines_tables_ref(f, hl, hr, 1 / d, block),
-        lambda: dist.solve_lines_tables(f, hl, hr, 1 / d, block))
-    times["strided_dist_lines"]["library_ms"] = cuda_time_ms(lambda: torch.matmul(M, ext))
-    times["strided_dist_lines"]["bytes"] = 4 * (2 * f.numel() + hl.numel() + hr.numel())
-    times["strided_dist_lines"]["points"] = f.numel()
-    times["strided_dist_lines"]["shape"] = list(f.shape)
+    record("strided_dist_lines", lambda: dist.solve_lines_tables_ref(f, hl, hr, 1 / d, block),
+           lambda: dist.solve_lines_tables(f, hl, hr, 1 / d, block),
+           lambda: torch.matmul(M, ext), f, hl, hr)
 
 
 def phase_dist_times(dev, smi) -> dict:
     """CUDA-event medians at 256^3 f32: the distributed dfdx, dfdy, dfdz on
     (2, 2, 2) (SCHEME4_PERIODIC) whole and split into halo, faces, gather +
-    reduced solve and kernels, beside the single-device derivative; K11 and
+    reduced solve and kernels (the kernels' 8 launches also queued: their
+    device time alone), beside the single-device derivative; K11 and
     K12 per launch; the distributed step on (2, 2, 2) and (1, 2, 2) in turns
     with the single-device fused step. Eight (four) shards on one card
     measure the distributed algorithm's overhead, not its scaling."""
@@ -1668,6 +1693,8 @@ def phase_dist_times(dev, smi) -> dict:
                 *faces, rinv, scheme=scheme, axis=axis, p=2)),
             "kernels_ms": cuda_time_ms(lambda: pcompact._dist_kernels(
                 Fs, left, right, ab, axis, **kw)),
+            "kernels_device_ms": cuda_time_ms(lambda: pcompact._dist_kernels(
+                Fs, left, right, ab, axis, **kw), queued=True),
             "single_device_ms": cuda_time_ms(
                 lambda: ct.derivative(F, dx, scheme, axis=axis - 3, method="kernel")),
         }
@@ -1690,12 +1717,13 @@ def phase_dist_times(dev, smi) -> dict:
     return times
 
 
-def _turns(plain, kernel) -> dict:
-    """CUDA-event medians in turns (plain, kernel, kernel, plain), averaged."""
-    p1 = cuda_time_ms(plain)
-    k1 = cuda_time_ms(kernel)
-    k2 = cuda_time_ms(kernel)
-    p2 = cuda_time_ms(plain)
+def _turns(plain, kernel, **kw) -> dict:
+    """CUDA-event medians in turns (plain, kernel, kernel, plain), averaged;
+    ``kw`` goes to cuda_time_ms."""
+    p1 = cuda_time_ms(plain, **kw)
+    k1 = cuda_time_ms(kernel, **kw)
+    k2 = cuda_time_ms(kernel, **kw)
+    p2 = cuda_time_ms(plain, **kw)
     return {"kernel_ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
             "kernel_readings_ms": [k1, k2], "plain_readings_ms": [p1, p2]}
 
@@ -1951,8 +1979,9 @@ def _summary(stats, launches, times, dist_times, long_times) -> list:
             "timed": [f"{k} {N}^3 f32" for k in keys],
         })
     # the shard-local kernels: per launch on one shard of 256^3 (K12 along
-    # y and z averaged), bound by the shard's least bytes (f, halos and
-    # weights read once, f' written once; ~26 flops a point as K1/K2)
+    # y and z averaged), device time alone (queued; host_ms with the host's
+    # issue time), bound by the shard's least bytes (f, halos and weights
+    # read once, f' written once; ~26 flops a point as K1/K2)
     for name, keys in (("lane_dist", ("lane_dist",)),
                        ("strided_dist", ("strided_dist_y", "strided_dist_z")),
                        ("strided_dist_lines", ("strided_dist_lines",))):
@@ -1970,7 +1999,7 @@ def _summary(stats, launches, times, dist_times, long_times) -> list:
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "copy_bound_ms": mean("bytes") / copy_rate * 1e3,
-            "library_ms": mean("library_ms"),
+            "library_ms": mean("library_ms"), "host_ms": mean("kernel_host_ms"),
             "timed": [f"{k} per launch, shard {dist_times[k]['shape']} f32" for k in keys],
         })
     # the stepwise substep's kernels at LONG, the shape whose path runs them

@@ -24,7 +24,9 @@ line over three shards.
 * the TF32 guard of the distributed dots;
 * on the card (``gpu`` marker; skipped without one): K11 and K12 (with
   and without ``ab``) against their plain versions in float64 on the same
-  float32 inputs, at the same gates, with one launch counted each.
+  float32 inputs, at the same gates, with one launch counted each, on
+  shard lines of nl in {40, 64, 96, 128, 256}: one to eight sub-blocks
+  (``parallel.dist_tables.pick_nb``), 40 no multiple of 32.
 """
 
 import importlib
@@ -266,7 +268,7 @@ def _card(cuda, *arrays):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nl,lines", [(128, 300), (40, 7), (256, 33)])
+@pytest.mark.parametrize("nl,lines", [(128, 300), (40, 7), (256, 33), (64, 45), (96, 70)])
 @pytest.mark.parametrize("shard", list(SHARDS))
 @pytest.mark.parametrize("name", NAMES)
 def test_lane_dist_kernel_matches_plain(cuda, name, shard, nl, lines):
@@ -285,7 +287,9 @@ def test_lane_dist_kernel_matches_plain(cuda, name, shard, nl, lines):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("axis,shape", [(1, (3, 128, 64)), (0, (64, 5, 33)), (1, (2, 40, 1))])
+@pytest.mark.parametrize("axis,shape", [(1, (3, 128, 64)), (0, (64, 5, 33)), (1, (2, 40, 1)),
+                                        (1, (2, 64, 37)), (1, (3, 96, 40)), (0, (96, 6, 20)),
+                                        (0, (256, 3, 36))])
 @pytest.mark.parametrize("shard", list(SHARDS))
 @pytest.mark.parametrize("name", NAMES)
 def test_strided_dist_kernel_matches_plain(cuda, name, shard, axis, shape):

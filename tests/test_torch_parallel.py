@@ -103,12 +103,20 @@ def test_tables_equal_cfd_tpu(name, n, p):
     for field in ("suh", "slh", "fv", "rinv_rows"):
         _same(getattr(tk, field), getattr(jk, field))
     assert tdt.pick_nb(n // p) == jdt.pick_nb(n // p)
+    nb = tdt.pick_nb(n // p)
     for r, block in enumerate(tdt.shard_blocks(ts, n, p)):
         assert block.first == (r == 0 and not ts.periodic)
         assert block.last == (r == p - 1 and not ts.periodic)
-        for field, jfield in (("w", "tw"), ("invd", "tinvd"), ("du", "tdu"), ("tinv", "tinv"),
-                              ("suh", "uh"), ("slh", "lh")):
+        for field, jfield in (("tinv", "tinv"), ("suh", "uh"), ("slh", "lh")):
             _same(getattr(block, field), getattr(want, jfield)[r])
+        # one sub-block is the whole block: its factors are the block's
+        whole = tdt.local_block_tables(ts, n // p, block.first, block.last, 1)
+        for field, jfield in (("w", "tw"), ("invd", "tinvd"), ("du", "tdu")):
+            _same(getattr(whole, field), getattr(want, jfield)[r])
+        sub = tdt.local_block_tables(ts, n // p, block.first, block.last, nb)
+        for got_t, want_t in zip(sub, jdt.local_block_tables(js, n // p, block.first,
+                                                             block.last, nb)):
+            _same(got_t, want_t)
     if not ts.periodic:
         jp, tp = j_phipsi_tables(js, n, p), phipsi_tables(ts, n, p)
         for field in ("linv", "uinv", "psi", "eta", "yrow", "xrow"):
