@@ -49,7 +49,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = (
     "compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu",
     "adv_lap3.cu", "div_rhs.cu", "pair.cu", "d2_sum.cu", "lap_rhs.cu", "curl_rhs.cu",
-    "lane_dist.cu", "strided_dist.cu", "adv_pair.cu",
+    "lane_dist.cu", "strided_dist.cu", "adv_pair.cu", "diag_copy.cu", "diag_dfdz.cu",
 )
 HEADERS = ("compact_common.cuh", "xy_phase.cuh", "dist_common.cuh")
 NVCC_FLAGS = (
@@ -173,6 +173,10 @@ def library() -> ctypes.CDLL:
     lib.cfd_strided_dist.restype = i32
     lib.cfd_adv_pair.argtypes = [p] * 6 + [coef] * 2 + [i32, p]
     lib.cfd_adv_pair.restype = i32
+    lib.cfd_diag_copy.argtypes = [p, p] + [i64] * 7 + [p]
+    lib.cfd_diag_copy.restype = i32
+    lib.cfd_diag_dfdz.argtypes = [p, p, p, i32, i32, i64, i32, p]
+    lib.cfd_diag_dfdz.restype = i32
     return lib
 
 

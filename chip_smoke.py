@@ -13,8 +13,9 @@ script exits non-zero without printing the final line:
 2. build    — nvcc builds kernels K1 (compact_lane), K2 (compact_strided),
               K3 (adv_lap), K4 (rk3_mega), K5 (adv_lap3), K6 (div_rhs), K7
               (gradient_pair), K8 (d2_sum), K9 (lap_rhs), K10 (curl_rhs), K11
-              (lane_dist), K12 (strided_dist) and K13 (adv_pair) for sm_90a
-              from cfd_tpu_torch/csrc/, one nvcc per source, in parallel.
+              (lane_dist), K12 (strided_dist), K13 (adv_pair), K14
+              (diag_copy) and K15 (diag_dfdz) for sm_90a from
+              cfd_tpu_torch/csrc/, one nvcc per source, in parallel.
 3. kernels  — each kernel against its plain PyTorch version (dense
               operators, float64, on the same float32 inputs):
               K1/K2 at 256^3 for the four first- and the four
@@ -131,6 +132,29 @@ script exits non-zero without printing the final line:
               and K2 rk with their plain versions and their unfused
               compositions, the stepwise tail against K4, and each model's
               step in turns with its generic step.
+8. diag     — the benchmark harness's kernels against their plain versions
+              at 256^3: K14 (diag_copy: copy2d over (1024, 256) tiles of
+              (65536, 256) and (256, C) tiles of the (256, 65536) dfdz
+              layout, copy3d over (256, 8|32, 256) and (8, 256, 256) slabs)
+              bitwise; K15 (diag_dfdz) on (256, 65536) at C = 1024 and 2048:
+              copy and rolls bitwise, dots within 3e-6 of max|ref| of
+              float64, dots_default within 1e-5 of its bf16-operand plain
+              version and 1e-2 of float64. Then their device times
+              (queued), each in turns with its plain version, beside its
+              bound and its library call (Tensor.copy_; torch.matmul in
+              float32; torch.bmm of bf16 casts with a float32 output; rolls:
+              its unfused torch.roll form), and
+              K1 at (64, 64, 512) and (32768, 512), queued, beside its plain
+              version and its library call.
+9. bench_scripts — each ported benchmark script's main
+              (cfd_tpu_torch/benchmarks/) on the card, in this process, with
+              the launch counts zeroed before and read after each: diag_lane
+              (copy floors, K1 at n = 256, 512, (64, 64, 512), 512^3),
+              diag_dfdz (the K15 ladder, K2's dfdz, the dense route) at
+              256^3, run_single at 64^3 and 256^3, run_distributed on
+              (2, 2, 2) at 256^3, diag_axes, diag_rk3 and diag_ns at 128^3.
+              A failed gate or an error row fails the run; so does a script
+              that launched none of its path's kernels.
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -141,6 +165,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -160,15 +185,21 @@ from cfd_tpu_torch.models import (
     taylor_green,
 )
 from cfd_tpu_torch.ops import (
-    _native, adv_lap, dense, dist, fused_step, lane, megastep, pair, poisson, spectra, strided,
-    vec,
+    _native, adv_lap, dense, diag, dist, fused_step, lane, megastep, pair, poisson, spectra,
+    strided, vec,
 )
 from cfd_tpu_torch.ops.rhs import closure_ghosts
 from cfd_tpu_torch.parallel import DistributedCompactSolver, Grid, make_mesh
 from cfd_tpu_torch.parallel import compact as pcompact
 from cfd_tpu_torch.parallel.dist_tables import shard_blocks
 from cfd_tpu_torch.parallel.fused import make_gradient_distributed
+from cfd_tpu_torch.benchmarks import diag_dfdz as bench_dfdz
+from cfd_tpu_torch.benchmarks.diag_dfdz import BF16_F64_GATE, BF16_GATE, DOTS_GATE
 from cfd_tpu_torch.utils import cuda_time_ms
+# The card's published rates (NVIDIA H100 SXM data sheet, at 700 W). The
+# bound of a kernel is the larger of its least bytes over HBM and its
+# operations over the peak for their type.
+from cfd_tpu_torch.utils.timing import F32_FLOPS_PER_S, HBM_BYTES_PER_S
 
 N = 256
 N512 = (64, 64, 512)  # K1 in pallas_lane's roll-form regime (n > 256)
@@ -236,12 +267,6 @@ RK3_MID = dict(a=-5.0 / 9.0, b=15.0 / 16.0, dt=DT, nu=NU)  # the second substep'
 # K4 with dt * nu = 1: the Laplacian's share of q' and f' is O(1), so a
 # wrong d2 solve fails the gate (at NU it is ~2e-6 of max|q'|).
 RK3_DIFFUSIVE = dict(RK3_MID, nu=1.0 / DT)
-# The card's published rates (NVIDIA H100 SXM data sheet, at 700 W): HBM3
-# bandwidth and float32 outside the tensor cores. The bound of a kernel is
-# the larger of its least bytes over the first and its operations over the
-# second.
-MEM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
 
 KERNELS = {
     "compact_lane": {
@@ -336,6 +361,19 @@ KERNELS = {
         "source": "cfd_tpu_torch/csrc/compact_strided.cu",
         "replaces": "cfd_tpu/ops/pallas_leading.py:157 (_leading_kernel rk=True via _call_rk3)",
     },
+    "diag_copy2d": {
+        "source": "cfd_tpu_torch/csrc/diag_copy.cu",
+        "replaces": "benchmarks/diag_lane.py:49 (copy2d, pallas_call at :56)",
+    },
+    "diag_copy3d": {
+        "source": "cfd_tpu_torch/csrc/diag_copy.cu",
+        "replaces": "benchmarks/diag_lane.py:75 (copy3d, pallas_call at :82)",
+    },
+    **{f"diag_dfdz_{mode}": {
+        "source": "cfd_tpu_torch/csrc/diag_dfdz.cu",
+        "replaces": f"benchmarks/diag_dfdz.py:48 (_pallas2d, pallas_call at :53) with {body}",
+    } for mode, body in (("copy", "k_copy :73"), ("rolls", "k_rolls :77"), ("dots", "k_dots :83"),
+                         ("dots_default", "k_dots_default :94"))},
 }
 
 
@@ -353,6 +391,8 @@ def launch_counts() -> dict:
         "d2_sum": pair.D2_SUM_LAUNCHES, "lap_rhs": adv_lap.LAP_LAUNCHES,
         "curl_rhs": vec.CURL_LAUNCHES, **dist.LAUNCHES,
         "adv_pair": pair.ADV_PAIR_LAUNCHES, "compact_strided_rk": modes["rk"],
+        "diag_copy2d": diag.COPY_LAUNCHES["2d"], "diag_copy3d": diag.COPY_LAUNCHES["3d"],
+        **{f"diag_dfdz_{mode}": n for mode, n in diag.DFDZ_LAUNCHES.items()},
     }
 
 
@@ -361,7 +401,8 @@ def zero_launch_counts() -> None:
     megastep.LAUNCHES = vec.LAUNCHES = pair.LAUNCHES = 0
     pair.GRADIENT_LAUNCHES = pair.D2_SUM_LAUNCHES = adv_lap.LAP_LAUNCHES = vec.CURL_LAUNCHES = 0
     pair.ADV_PAIR_LAUNCHES = 0
-    for modes in (lane.MODE_LAUNCHES, strided.MODE_LAUNCHES, dist.LAUNCHES):
+    for modes in (lane.MODE_LAUNCHES, strided.MODE_LAUNCHES, dist.LAUNCHES, diag.COPY_LAUNCHES,
+                  diag.DFDZ_LAUNCHES):
         for mode in modes:
             modes[mode] = 0
 
@@ -1633,7 +1674,7 @@ def _dist_kernel_times(times, g, dev) -> None:
         times[key]["bytes"] = 4 * (2 * f.numel() + sum(t.numel() for t in rest))
         times[key]["points"] = f.numel()
         times[key]["shape"] = list(f.shape)
-        times[key]["bound_ms"] = times[key]["bytes"] / MEM_BYTES_PER_S * 1e3
+        times[key]["bound_ms"] = times[key]["bytes"] / HBM_BYTES_PER_S * 1e3
         times[key]["bound_fraction"] = times[key]["bound_ms"] / times[key]["kernel_ms"]
 
     for scheme, suffix in ((ct.SCHEME4_PERIODIC, ""), (ct.SCHEME4_D2, "_d2_first")):
@@ -1943,7 +1984,200 @@ def phase_times(dev, smi) -> dict:
     return {**times, "copy_floor_ms": copy_ms}
 
 
-def _summary(stats, launches, times, dist_times, long_times) -> list:
+# ---------------------------------------------------------------------------
+# Slice 8: the benchmark harness and its diagnosis kernels (K14, K15)
+# ---------------------------------------------------------------------------
+
+DFDZ = (N, N * N)  # the dfdz layout of a 256^3 field (diag_dfdz.py)
+LANE2D = (N * N, N)  # K1's lines as diag_lane.py copies them
+DFDZ_COLS = (1024, 2048)  # diag_dfdz.py's tiles
+# The gates of the dots modes are the script's (benchmarks/diag_dfdz.py):
+# dots against float64 at the dense-operator gate; dots_default against its
+# bf16-operand plain version and against float64.
+DIAG_TIMED = {"diag_copy2d": f"{LANE2D} tiles (1024, {N})",
+              "diag_copy3d": f"{(N,) * 3} slabs ({N}, 8, {N})",
+              "diag_dfdz_": f"{DFDZ} C={DFDZ_COLS[0]}"}
+
+
+def _diag_cases(stats, failures, g, dev) -> None:
+    """K14 and K15 against their plain versions: copies bitwise, rolls
+    bitwise (the same two roundings), the dots modes at their gates."""
+    def record(kernel, label, got, ref, ok, **extra):
+        abs_err = (got.double() - ref.double()).abs().max().item()
+        ref_max = ref.double().abs().max().item()
+        emit({"phase": "kernels", "kernel": kernel, "case": label, "max_abs_err": abs_err,
+              "max_abs_ref": ref_max, "rel_err": abs_err / ref_max, **extra, "ok": ok})
+        s = stats[kernel]
+        s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+        s["max_rel_err"] = max(s["max_rel_err"], abs_err / ref_max)
+        if not ok:
+            failures.append(f"{kernel} {label}")
+
+    x2 = torch.randn(LANE2D, generator=g, device=dev)
+    xz = torch.randn(DFDZ, generator=g, device=dev)
+    for x, rows, cols in ((x2, 1024, N),) + tuple((xz, N, c) for c in (512, 2048, 8192)):
+        got = diag.copy2d(x, rows, cols)
+        record("diag_copy2d", f"{tuple(x.shape)} tiles ({rows}, {cols})", got, x,
+               torch.equal(got, x), gate="bitwise")
+    x3 = xz.view(N, N, N)
+    for bz, by in ((N, 8), (N, 32), (8, N)):
+        got = diag.copy3d(x3, bz, by)
+        record("diag_copy3d", f"{tuple(x3.shape)} slabs ({bz}, {by}, {N})", got, x3,
+               torch.equal(got, x3), gate="bitwise")
+    table = diag.dfdz_table(N, dev)
+    exact = diag.dfdz_stage_ref(xz.double(), "dots", DFDZ_COLS[0], table.double())
+    for C in DFDZ_COLS:
+        label = f"{DFDZ} C={C}"
+        for mode in ("copy", "rolls"):
+            got, ref = diag.dfdz_stage(xz, mode, C), diag.dfdz_stage_ref(xz, mode, C)
+            record(f"diag_dfdz_{mode}", label, got, ref, torch.equal(got, ref), gate="bitwise")
+        got = diag.dfdz_stage(xz, "dots", C)
+        rel = _rel(got, exact)
+        record("diag_dfdz_dots", label + " vs float64", got, exact, rel <= DOTS_GATE,
+               gate=DOTS_GATE)
+        got = diag.dfdz_stage(xz, "dots_default", C)
+        rel16 = _rel(got, diag.dfdz_stage_ref(xz, "dots_default", C))
+        rel64 = _rel(got, exact)
+        record("diag_dfdz_dots_default", label + " vs bf16-operand plain", got,
+               diag.dfdz_stage_ref(xz, "dots_default", C),
+               rel16 <= BF16_GATE and rel64 <= BF16_F64_GATE, gate=BF16_GATE,
+               rel_err_vs_float64=rel64, gate_vs_float64=BF16_F64_GATE)
+
+
+def _rel(got, ref) -> float:
+    return ((got.double() - ref.double()).abs().max() / ref.double().abs().max()).item()
+
+
+def phase_diag(dev, smi) -> dict:
+    """K14 and K15 against their plain versions on the card (at 256^3: the
+    (256, 65536) dfdz layout and its 3-D view, and diag_lane's (65536,
+    256)), then their device times (queued: every call issued behind a spin
+    kernel), each in turns with its plain version, beside its bound and the
+    one PyTorch call that computes the same function (Tensor.copy_ for the
+    copies; torch.matmul(T, f.view(2, 128, L)) for dots; for dots_default
+    the same as torch.bmm of the bf16 casts, made inside the call, with a
+    float32 output; rolls has none: its unfused torch.roll form is timed);
+    and K1 at (64, 64, 512) and at n = 512 (row 2), queued, beside its plain
+    version and its library call, queued too."""
+    stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS if k.startswith("diag")}
+    failures = []
+    g = torch.Generator(device=dev).manual_seed(20261025)
+    _diag_cases(stats, failures, g, dev)
+    torch.cuda.synchronize()
+    if failures:
+        raise AssertionError("diag kernels vs plain over the gate: " + "; ".join(failures))
+    q = dict(queued=True)
+    times = {}
+    xz = torch.randn(DFDZ, generator=g, device=dev)
+    x2, x3 = xz.view(LANE2D), xz.view(N, N, N)
+    out = torch.empty_like(xz)
+    copy_ms = cuda_time_ms(lambda: out.copy_(xz), **q)
+    times["diag_copy2d"] = _turns(lambda: diag.copy2d_ref(x2, 1024, N),
+                                  lambda: diag.copy2d(x2, 1024, N), **q)
+    times["diag_copy3d"] = _turns(lambda: diag.copy3d_ref(x3, N, 8),
+                                  lambda: diag.copy3d(x3, N, 8), **q)
+    for key in ("diag_copy2d", "diag_copy3d"):
+        times[key]["library_ms"] = copy_ms
+    times["diag_copy2d_patterns_ms"] = {
+        f"{tuple(x.shape)} tiles ({r}, {c})": cuda_time_ms(lambda: diag.copy2d(x, r, c), **q)
+        for x, r, c in ((x2, 1024, N), (xz, N, 512), (xz, N, 2048), (xz, N, 8192))}
+    times["diag_copy3d_patterns_ms"] = {
+        f"slabs ({bz}, {by}, {N})": cuda_time_ms(lambda: diag.copy3d(x3, bz, by), **q)
+        for bz, by in ((N, 8), (N, 32), (8, N))}
+    table = diag.dfdz_table(N, dev)
+    blocks = xz.view(N // diag.BLOCK, diag.BLOCK, -1)
+    # dots_default's library call: the same function, float32 in and out
+    # (the bf16 casts inside the call, float32 accumulation and output)
+    library = {"copy": lambda: out.copy_(xz), "rolls": None,
+               "dots": lambda: torch.matmul(table, blocks),
+               "dots_default": lambda: torch.bmm(table.bfloat16(), blocks.bfloat16(),
+                                                 out_dtype=torch.float32)}
+    for mode in diag.MODES:
+        key = f"diag_dfdz_{mode}"
+        for C in DFDZ_COLS:
+            t = _turns(lambda: diag.dfdz_stage_ref(xz, mode, C, table),
+                       lambda: diag.dfdz_stage(xz, mode, C, table), **q)
+            times[key if C == DFDZ_COLS[0] else f"{key}_C{C}"] = t
+        times[key]["library_ms"] = cuda_time_ms(library[mode], **q) if library[mode] else None
+        if mode == "rolls":
+            def unfused():
+                g1 = torch.roll(xz, -1, 0) - xz
+                return g1 + torch.roll(g1, 1, 0)
+            times[key]["unfused_ms"] = cuda_time_ms(unfused, **q)
+    # row 2: K1 on lines of 512 points, device time alone
+    dx = 0.01
+    for shape in (N512, (N * N // 2, 2 * N)):
+        f = torch.randn(shape, generator=g, device=dev)
+        M = torch.as_tensor(dense.dense_operator(ct.SCHEME4_PERIODIC, shape[-1]) / dx,
+                            dtype=torch.float32, device=dev).T.contiguous()
+        t = _turns(lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC, method="matmul"),
+                   lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC, method="kernel"), **q)
+        t["library_ms"] = cuda_time_ms(lambda: torch.matmul(f.view(-1, shape[-1]), M), **q)
+        t["kernel_host_ms"] = cuda_time_ms(lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC))
+        t["bound_ms"] = 8 * f.numel() / HBM_BYTES_PER_S * 1e3
+        times[f"compact_lane_n512_{'x'.join(map(str, shape))}"] = t
+    emit({"phase": "diag_times", "device": smi, "dtype": "float32", "copy_floor_ms": copy_ms,
+          **times, "note": "queued: every call issued behind a spin kernel, device time alone"})
+    return {"stats": stats, "times": times}
+
+
+# What each script must launch when it runs on the card: its own kernels
+# (the path), checked after the script's run with every count zeroed first
+BENCH_SCRIPTS = {
+    # name: (argv, environment, kernels the run must launch)
+    "diag_lane": (["--passes", "1"], {}, ("diag_copy2d", "diag_copy3d", "compact_lane")),
+    "diag_dfdz": (["--passes", "1"], {}, tuple(f"diag_dfdz_{m}" for m in diag.MODES)
+                  + ("compact_strided",)),
+    "run_single": (["--sizes", "64,256"], {}, ("strided_dist_lines", "compact_lane",
+                                               "compact_strided", "compact_lane_filter")),
+    # 128-point shard lines: the fast path, K11 (64-point ones take the
+    # dense generic route, which launches no kernel)
+    "run_distributed": ([], {"CFD_MESH": "2,2,2", "CFD_GRID": "256,256,256",
+                             "CFD_SPACING": "0.0245"}, ("lane_dist",)),
+    "diag_axes": (["--n", "128"], {}, ("compact_lane", "compact_strided", "lap_rhs",
+                                       "compact_strided_solve")),
+    "diag_rk3": (["--n", "128"], {}, ("adv_lap", "rk3_mega", "adv_pair", "lap_rhs",
+                                      "compact_strided_mul", "compact_strided_rk", "adv_lap3")),
+    "diag_ns": (["--n", "128"], {}, ("adv_lap3", "rk3_mega", "div_rhs", "compact_strided_solve",
+                                     "pair_subtract", "compact_strided_acc")),
+}
+
+
+def phase_bench_scripts(dev) -> dict:
+    """Each ported benchmark script's main, in this process, at a reduced
+    size (diag_lane and diag_dfdz at their own 256^3 with one pass), with
+    every launch count zeroed just before and read just after: a failed
+    gate or an error row ends the script nonzero, and this phase fails."""
+    import importlib
+
+    launches = {}
+    for name, (argv, env, must) in BENCH_SCRIPTS.items():
+        mod = importlib.import_module(f"cfd_tpu_torch.benchmarks.{name}")
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        t0 = time.perf_counter()
+        try:
+            out, counts = _run_path(lambda: mod.main(argv + ["--device", str(dev)]))
+        except SystemExit as exc:
+            raise AssertionError(f"bench script {name} failed (exit {exc.code})") from None
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        missing = [k for k in must if counts[k] == 0]
+        emit({"phase": "bench_scripts", "script": name, "argv": argv, "env": env,
+              "rows": len(out), "seconds": time.perf_counter() - t0,
+              "launches": {k: v for k, v in counts.items() if v}, "missing": missing,
+              "ok": not missing})
+        if missing:
+            raise AssertionError(f"bench script {name} launched none of {missing}")
+        launches[f"bench_{name}"] = counts
+    return launches
+
+
+def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
     pts = N**3
     copy_rate = 2 * 4 * pts / (times["copy_floor_ms"] * 1e-3)  # bytes/s, this run
     timed = {
@@ -1962,7 +2196,7 @@ def _summary(stats, launches, times, dist_times, long_times) -> list:
     for name, keys in timed.items():
         mean = lambda field: sum(times[k][field] for k in keys) / len(keys)
         nbytes = BYTES_PER_POINT[name] * pts
-        byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = FLOPS_PER_POINT[name] * pts / F32_FLOPS_PER_S * 1e3
         lib = [times[k]["library_ms"] for k in keys if "library_ms" in times[k]]
         rows.append({
@@ -1986,7 +2220,7 @@ def _summary(stats, launches, times, dist_times, long_times) -> list:
                        ("strided_dist", ("strided_dist_y", "strided_dist_z")),
                        ("strided_dist_lines", ("strided_dist_lines",))):
         mean = lambda field: sum(dist_times[k][field] for k in keys) / len(keys)
-        byte_ms = mean("bytes") / MEM_BYTES_PER_S * 1e3
+        byte_ms = mean("bytes") / HBM_BYTES_PER_S * 1e3
         op_ms = 26 * mean("points") / F32_FLOPS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", **KERNELS[name],
@@ -2007,7 +2241,7 @@ def _summary(stats, launches, times, dist_times, long_times) -> list:
     for name in ("adv_pair", "compact_strided_rk"):
         t = long_times[f"{name}_{key}"]
         nbytes = BYTES_PER_POINT[name] * math.prod(LONG)
-        byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = FLOPS_PER_POINT[name] * math.prod(LONG) / F32_FLOPS_PER_S * 1e3
         rows.append({
             "name": name, "route": "cuda", **KERNELS[name],
@@ -2023,6 +2257,26 @@ def _summary(stats, launches, times, dist_times, long_times) -> list:
             "library_ms": None,
             "unfused_ms": t["unfused_ms"],
             "timed": [f"{name} {LONG} f32"],
+        })
+    # the diagnosis kernels at 256^3, queued (device time alone)
+    for name, t in diag_out["times"].items():
+        if name not in KERNELS:
+            continue
+        bound, bound_by = bench_dfdz.bound_ms(name.removeprefix("diag_dfdz_"), pts)
+        rows.append({
+            "name": name, "route": "cuda", **KERNELS[name],
+            "launches": sum(by_path[name] for by_path in launches.values()),
+            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()
+                                 if by_path[name]},
+            "max_abs_err": diag_out["stats"][name]["max_abs_err"],
+            "max_rel_err": diag_out["stats"][name]["max_rel_err"],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": bound, "bound_by": bound_by,
+            "copy_bound_ms": 8 * pts / copy_rate * 1e3,
+            "library_ms": t["library_ms"],
+            **({"unfused_ms": t["unfused_ms"]} if "unfused_ms" in t else {}),
+            "timed": [f"{name} {next(v for k, v in DIAG_TIMED.items() if name.startswith(k))} "
+                      "f32, queued"],
         })
     return rows
 
@@ -2045,9 +2299,11 @@ def main() -> None:
     times = phase_times(dev, smi)
     dist_times = phase_dist_times(dev, smi)
     long_times = _long_times(dev, smi)
+    diag_out = phase_diag(dev, smi)
+    launches.update(phase_bench_scripts(dev))
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    emit({"kernels": _summary(stats, launches, times, dist_times, long_times)})
+    emit({"kernels": _summary(stats, launches, times, dist_times, long_times, diag_out)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

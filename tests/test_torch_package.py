@@ -39,7 +39,12 @@ def test_import_loads_no_jax():
         "import cfd_tpu_torch.ops.vec, cfd_tpu_torch.ops.pair, cfd_tpu_torch.ops.poisson\n"
         "import cfd_tpu_torch.ops.spectra, cfd_tpu_torch.ops.dist, cfd_tpu_torch.ops.rhs\n"
         "import cfd_tpu_torch.parallel, cfd_tpu_torch.parallel.fused, cfd_tpu_torch.parallel.phipsi\n"
-        "import cfd_tpu_torch.oracle.lanl\n"
+        "import cfd_tpu_torch.oracle.lanl, cfd_tpu_torch.config, cfd_tpu_torch.ops.diag\n"
+        "import cfd_tpu_torch.utils.profiling, cfd_tpu_torch.benchmarks\n"
+        "import cfd_tpu_torch.benchmarks.diag_lane, cfd_tpu_torch.benchmarks.diag_dfdz\n"
+        "import cfd_tpu_torch.benchmarks.run_single, cfd_tpu_torch.benchmarks.run_distributed\n"
+        "import cfd_tpu_torch.benchmarks.diag_axes, cfd_tpu_torch.benchmarks.diag_rk3\n"
+        "import cfd_tpu_torch.benchmarks.diag_ns\n"
         "import cfd_tpu_torch.models.burgers, cfd_tpu_torch.models.navier_stokes\n"
         "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'cfd_tpu.'))))"
     )
@@ -97,7 +102,7 @@ def test_build_without_toolkit_raises(monkeypatch, tmp_path):
 def test_sources_are_present():
     kernels = {"compact_lane.cu", "compact_strided.cu", "adv_lap.cu", "rk3_mega.cu",
                "adv_lap3.cu", "div_rhs.cu", "pair.cu", "d2_sum.cu", "lap_rhs.cu",
-               "curl_rhs.cu"}
+               "curl_rhs.cu", "diag_copy.cu", "diag_dfdz.cu"}
     assert kernels <= set(_native.SOURCES)
     for name in _native.SOURCES + _native.HEADERS:
         assert (_native.CSRC / name).is_file()
