@@ -28,7 +28,8 @@ import torch
 
 from ..ops import derivatives, diag
 from ..schemes import SCHEME4_PERIODIC
-from ..utils.timing import BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S
+from ..utils.timing import (BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S,
+                            TF32_FLOPS_PER_S)
 from . import Report, bench_ms, device_of, parser
 
 SCH = SCHEME4_PERIODIC
@@ -46,13 +47,19 @@ def bound_ms(mode: str, points: int) -> tuple:
     """(ms, "bytes" or "operations"): the least time of a stage on
     ``points`` points, the larger of its 8 bytes a point over HBM and its
     operations over the card's peak for their type. The dots modes do one
-    128-term dot a point: float32 FMA for dots (67 TFLOP/s, so bound by
-    operations), bf16 operands with float32 sums for dots_default (the
-    tensor cores' 989 TFLOP/s, so bound by bytes)."""
+    128-term dot a point on the tensor cores (K15): dots as three TF32
+    passes (495 TFLOP/s), dots_default one bf16 pass (989 TFLOP/s); both
+    are bound by bytes. ``fma_bound_ms`` is dots' bound on the FMA units."""
     byte_ms = 8 * points / HBM_BYTES_PER_S * 1e3
-    rate = {"dots": F32_FLOPS_PER_S, "dots_default": BF16_FLOPS_PER_S}.get(mode)
-    op_ms = 2 * diag.BLOCK * points / rate * 1e3 if rate else 0.0
+    flops = {"dots": (3, TF32_FLOPS_PER_S), "dots_default": (1, BF16_FLOPS_PER_S)}.get(mode)
+    op_ms = flops[0] * 2 * diag.BLOCK * points / flops[1] * 1e3 if flops else 0.0
     return (byte_ms, "bytes") if byte_ms >= op_ms else (op_ms, "operations")
+
+
+def fma_bound_ms(points: int) -> float:
+    """The operations bound of one 128-term float32 dot a point on the
+    FMA units (67 TFLOP/s), the form of dots before the tensor cores."""
+    return 2 * diag.BLOCK * points / F32_FLOPS_PER_S * 1e3
 
 
 def check(mode: str, x, C: int, table) -> str:

@@ -1,6 +1,9 @@
 // Shared pieces of the shard-local kernels K11 (lane_dist.cu) and K12
 // (strided_dist.cu): one shard's line of a distributed compact solve, cut
-// into sub-blocks whose Thomas chains run side by side.
+// into sub-blocks whose Thomas chains run side by side. K1 runs the same
+// chains on whole lines (line_chains.cuh): solve_chain takes
+// the table and the rows past a chain's own through an interface, so that
+// both layouts share the sweeps.
 //
 // A line of a shard holds n = c.n points f[0 .. n) and the w = c.K halo
 // rows of its neighbours, f[-w .. 0) and f[n .. n + w). Its local block T_r
@@ -137,22 +140,47 @@ __device__ __forceinline__ float2 dist_row2(const float* __restrict__ tab, int g
   return __ldg(reinterpret_cast<const float2*>(tab + DIST_TAB_ROW * g + at));
 }
 
-// Chain k of nb of one staged shard line, line[m * stride] = f[m] for
-// -K <= m < n + K (K = c.K), against the table `tab` at row 0, solved in
-// place: `store(g, x_g)` receives the solution with the intra update and,
+// The table of a shard's block as K11/K12 read it (point-major, DIST_TAB_*,
+// `tab` at row 0): what a chain reads at row g on its forward sweep (w,
+// t0), on its backward sweep (invd, du, uh, lh) and for the shard update
+// (suh, slh); and the chain's weights (alpha, beta), its two rows of the
+// (2nb, 2nb) intra reduced inverse dotted with the line's 2 nb faces.
+struct DistTab {
+  const float* __restrict__ tab;
+  int n;
+  __device__ __forceinline__ float2 fwd(int g) const { return dist_row2(tab, g, DIST_TAB_W); }
+  __device__ __forceinline__ float4 bwd(int g) const { return dist_row4(tab, g); }
+  __device__ __forceinline__ float2 shard(int g) const { return dist_row2(tab, g, DIST_TAB_SUH); }
+  __device__ __forceinline__ void reduce(const float* faces, int fstride, int k, int nb,
+                                         float& alpha, float& beta) const {
+    const float* rinv = tab + DIST_TAB_ROW * (n + 1) + 2 * k * 2 * nb;
+#pragma unroll
+    for (int j = 0; j < 2 * DIST_MAX_NB; ++j) {
+      if (j < 2 * nb) {
+        const float fj = faces[j * fstride];
+        alpha += __ldg(rinv + j) * fj;
+        beta += __ldg(rinv + 2 * nb + j) * fj;
+      }
+    }
+  }
+};
+
+// Chain k of nb of one staged line, solved in place against the table
+// `tab` (DistTab's interface): `line[g * stride]` is f[g] for the chain's
+// own rows s <= g <= e, and `nbr(m)` returns f[m] for the rows of the
+// neighbouring sub-blocks it reads, s - K <= m < s and e < m <= e + K (K =
+// c.K). `store(g, x_g)` receives the solution with the intra update and,
 // with AB, the shard update a suh + b slh, from row e down to s.
 // `faces[j * fstride]`, j < 2 nb, is this line's face slot in shared
-// memory. Every thread of the block calls it: it holds two barriers. A
-// warp's threads share k, so every table read is one load a row for the
-// warp.
+// memory. Every thread of the block calls it: it holds two barriers.
 //
 // The sweeps are bound by the instructions they issue and by latency (16
 // warps an SM at a 128^3 shard). Each runs its middle rows without a test
 // (no closure row, every row it reads inside the chain), DIST_STEP rows at
 // a time, and its first and last rows with them.
-template <int K, bool AB, class Store>
-__device__ __forceinline__ void solve_chain(const Coef& c, const float* __restrict__ tab, int nb,
-                                            int k, float* line, int stride, bool first,
+template <int K, bool AB, class Tab, class Nbr, class Store>
+__device__ __forceinline__ void solve_chain(const Coef& c, const Tab& tab, int nb, int k,
+                                            float* line, int stride, Nbr nbr, bool first,
                                             bool last, float* faces, int fstride, float a,
                                             float b, Store store) {
   const int n = c.n;
@@ -161,10 +189,11 @@ __device__ __forceinline__ void solve_chain(const Coef& c, const float* __restri
   const int e = s + bz - 1;
   float right[K];  // f[e + 1 .. e + K]: the next sub-block's first rows
 #pragma unroll
-  for (int j = 0; j < K; ++j) right[j] = line[(e + 1 + j) * stride];
+  for (int j = 0; j < K; ++j) right[j] = nbr(e + 1 + j);
   auto src = [&](int m) {
     if (m > e) return m - e - 1 < K ? pick(right, m - e - 1) : 0.f;
-    return m >= -K ? line[m * stride] : 0.f;
+    if (m < s) return m >= -K ? nbr(m) : 0.f;
+    return line[m * stride];
   };
   ChainRhs<K, decltype(src)> rhs(c, src, s, first && k == 0, last && k == nb - 1);
   __syncthreads();  // every chain holds what it reads of its neighbours' rows
@@ -172,10 +201,10 @@ __device__ __forceinline__ void solve_chain(const Coef& c, const float* __restri
   // Each row's table values are loaded a row ahead: a load issued after the
   // previous row's store would wait in the row's path.
   float z = 0.f, ff = 0.f;
-  float2 wt_next = dist_row2(tab, s, DIST_TAB_W);
+  float2 wt_next = tab.fwd(s);
   auto forward = [&](int g, float r) {
     const float2 wt = wt_next;
-    wt_next = dist_row2(tab, g + 1, DIST_TAB_W);
+    wt_next = tab.fwd(g + 1);
     z = r - wt.x * z;
     ff += wt.y * r;
     line[g * stride] = z;
@@ -203,24 +232,20 @@ __device__ __forceinline__ void solve_chain(const Coef& c, const float* __restri
     rhs.shift(src(g + DIST_AHEAD));
     forward(g, r);
   }
-  const float4 te = dist_row4(tab, e);
+  const float4 te = tab.bwd(e);
   faces[2 * k * fstride] = -ff;
   faces[(2 * k + 1) * fstride] = -(z * te.x);
   __syncthreads();  // the line's 2 nb faces are in
 
-  const float* rinv = tab + DIST_TAB_ROW * (n + 1) + 2 * k * 2 * nb;
   float alpha = 0.f, beta = 0.f;
-#pragma unroll
-  for (int j = 0; j < 2 * DIST_MAX_NB; ++j) {
-    if (j < 2 * nb) {
-      const float fj = faces[j * fstride];
-      alpha += __ldg(rinv + j) * fj;
-      beta += __ldg(rinv + 2 * nb + j) * fj;
-    }
-  }
+  tab.reduce(faces, fstride, k, nb, alpha, beta);
 
   auto shard_loads = [&](int g) {
-    return AB ? dist_row2(tab, g, DIST_TAB_SUH) : make_float2(0.f, 0.f);
+    if constexpr (AB) {
+      return tab.shard(g);
+    } else {
+      return make_float2(0.f, 0.f);
+    }
   };
   auto update = [&](float x, const float4& t, const float2& sl) {
     float v = x + alpha * t.z + beta * t.w;
@@ -228,12 +253,12 @@ __device__ __forceinline__ void solve_chain(const Coef& c, const float* __restri
     return v;
   };
   float x = z * te.x;
-  float4 t_next = dist_row4(tab, e - 1);
+  float4 t_next = tab.bwd(e - 1);
   float2 sl_next = shard_loads(e - 1);
   auto backward = [&](int g, float zg) {
     const float4 t = t_next;
     const float2 sl = sl_next;
-    t_next = dist_row4(tab, g - 1);
+    t_next = tab.bwd(g - 1);
     sl_next = shard_loads(g - 1);
     x = (zg - t.y * x) * t.x;
     store(g, update(x, t, sl));
@@ -261,6 +286,20 @@ __device__ __forceinline__ void solve_chain(const Coef& c, const float* __restri
   for (; g >= s; --g) {
     backward(g, behind(g - DIST_BEHIND >= s ? line[(g - DIST_BEHIND) * stride] : 0.f));
   }
+}
+
+// solve_chain for one staged shard line of K11/K12, line[m * stride] =
+// f[m] for -K <= m < n + K (K = c.K), against the table `tab` at row 0. A
+// warp's threads share k, so every table read is one load a row for the
+// warp.
+template <int K, bool AB, class Store>
+__device__ __forceinline__ void solve_chain(const Coef& c, const float* __restrict__ tab, int nb,
+                                            int k, float* line, int stride, bool first,
+                                            bool last, float* faces, int fstride, float a,
+                                            float b, Store store) {
+  solve_chain<K, AB>(c, DistTab{tab, c.n}, nb, k, line, stride,
+                     [=](int m) { return line[m * stride]; }, first, last, faces, fstride, a, b,
+                     store);
 }
 
 // cp.async copies from device memory to shared memory: 16 bytes (both

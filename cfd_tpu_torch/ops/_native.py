@@ -51,7 +51,7 @@ SOURCES = (
     "adv_lap3.cu", "div_rhs.cu", "pair.cu", "d2_sum.cu", "lap_rhs.cu", "curl_rhs.cu",
     "lane_dist.cu", "strided_dist.cu", "adv_pair.cu", "diag_copy.cu", "diag_dfdz.cu",
 )
-HEADERS = ("compact_common.cuh", "xy_phase.cuh", "dist_common.cuh")
+HEADERS = ("compact_common.cuh", "xy_phase.cuh", "dist_common.cuh", "line_chains.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -144,7 +144,7 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     coef = ctypes.POINTER(Coef)
-    lib.cfd_compact_lane.argtypes = [p, p, p, coef, p, i64, p]
+    lib.cfd_compact_lane.argtypes = [p, p, p, coef, p, i64, i32, i32, i32, p]
     lib.cfd_compact_lane.restype = i32
     lib.cfd_compact_strided.argtypes = [p, p, p, coef, p, p, i32, i64, i64, p]
     lib.cfd_compact_strided.restype = i32

@@ -21,7 +21,9 @@ run their Thomas chains side by side, one thread each, as the JAX leading
 kernel does (``cfd_tpu/ops/pallas_leading.py``): ``local_block_tables``
 gives the sub-blocks' factors, the first rows of their inverses (the
 forward sweep's faces), their intra unit loads and the (2nb, 2nb) intra
-reduced inverse. The JAX module's 128-lane block inverses
+reduced inverse. ``line_block_tables`` gives the same for a whole line,
+the sub-block chains of K1 (``csrc/line_chains.cuh``); on a periodic line
+its reduced matrix is cyclic. The JAX module's 128-lane block inverses
 ``Tm``/``Mt``/``E`` and intra-block corrections ``D``/``Qd`` feed the
 TPU's matrix unit, and the port needs none of them.
 """
@@ -40,7 +42,8 @@ from ..ops.dist import ShardBlock
 from ..schemes import CompactScheme, lhs_bands
 
 __all__ = [
-    "BlockTables", "ShardKernelTables", "local_block_tables", "shard_kernel_tables",
+    "BlockTables", "ShardKernelTables", "line_block_tables", "local_block_tables",
+    "shard_kernel_tables",
     "shard_blocks", "shard_table", "pick_nb",
 ]
 
@@ -95,8 +98,39 @@ class BlockTables(NamedTuple):
     rinv: np.ndarray
 
 
-def _dense(dl, d, du):
-    return np.diag(d) + np.diag(dl[1:], -1) + np.diag(du[:-1], 1)
+@functools.lru_cache(maxsize=None)
+def line_block_tables(scheme: CompactScheme, n: int, nb: int) -> BlockTables:
+    """A whole line of ``n`` points cut into ``nb`` sub-blocks: K1's chains
+    (``csrc/line_chains.cuh``). A non-periodic line is a shard that is both
+    first and last, ``local_block_tables(scheme, n, True, True, nb)``. On a
+    periodic line the wrap couples the last sub-block to the first: every
+    sub-block has both intra unit loads, and ``rinv`` is the inverse of the
+    cyclic (2nb, 2nb) reduced matrix, with no identity end rows; nothing
+    is left for a Sherman–Morrison term."""
+    if not scheme.periodic:
+        return local_block_tables(scheme, n, True, True, nb)
+    if n % nb:
+        raise ValueError(f"line of {n} points not divisible into {nb} blocks")
+    cat = _sub_block_parts(scheme, n, True, True, nb, wrap=scheme.alpha)
+    rinv = _cyclic_reduced(cat["uh"].reshape(nb, -1), cat["lh"].reshape(nb, -1), nb)
+    return BlockTables(rinv=rinv, **cat)
+
+
+def _cyclic_reduced(uh: np.ndarray, lh: np.ndarray, nb: int) -> np.ndarray:
+    """The inverse of a periodic line's reduced interface matrix: rows as
+    ``_intra_reduced``'s, with the couplings across the wrap in place of
+    the identity end rows."""
+    m = 2 * nb
+    R = np.zeros((m, m))
+    for b in range(nb):
+        er, orow = 2 * b, 2 * b + 1
+        R[er, er] += uh[b, 0]
+        R[er, orow] += lh[b, 0]
+        R[er, (er - 1) % m] -= 1.0
+        R[orow, er] += uh[b, -1]
+        R[orow, orow] += lh[b, -1]
+        R[orow, (orow + 1) % m] -= 1.0
+    return np.linalg.inv(R)
 
 
 @functools.lru_cache(maxsize=None)
@@ -116,14 +150,8 @@ def local_block_tables(scheme: CompactScheme, nl: int, first: bool, last: bool,
     and last sub-block (``pick_nb``'s 32 rows)."""
     if nl % nb:
         raise ValueError(f"local extent {nl} not divisible into {nb} blocks")
-    parts = {k: [] for k in ("w", "invd", "du", "t0", "uh", "lh")}
-    for bands, tinv, uh_b, lh_b in _sub_blocks(scheme, nl, first, last, nb):
-        tf = tridiag.thomas_factor(*bands)
-        for k, v in (("w", tf.w), ("invd", tf.invd), ("du", tf.du), ("t0", tinv[0]),
-                     ("uh", uh_b), ("lh", lh_b)):
-            parts[k].append(v)
-    cat = {k: np.concatenate(v) for k, v in parts.items()}
-    rinv = _intra_reduced(np.stack(parts["uh"]), np.stack(parts["lh"]), nb)
+    cat = _sub_block_parts(scheme, nl, first, last, nb)
+    rinv = _intra_reduced(cat["uh"].reshape(nb, -1), cat["lh"].reshape(nb, -1), nb)
     return BlockTables(rinv=rinv, **cat)
 
 
@@ -154,25 +182,37 @@ def _intra_reduced(uh: np.ndarray, lh: np.ndarray, nb: int) -> np.ndarray:
     return rinv
 
 
-def _sub_blocks(scheme: CompactScheme, nl: int, first: bool, last: bool, nb: int):
-    """The local block's nb sub-blocks: per sub-block its bands with the
-    couplings to its neighbours cut, its dense inverse and its intra unit
-    loads (the responses to the cut couplings)."""
+def _sub_block_parts(scheme: CompactScheme, nl: int, first: bool, last: bool, nb: int,
+                     wrap: float = 0.0) -> dict:
+    """The local block's nb sub-blocks, their (nl,) tables concatenated:
+    each sub-block's Thomas factors with its couplings to its neighbours
+    cut (``w``, ``invd``, ``du``), the first row of its inverse (``t0``)
+    and its intra unit loads (``uh``/``lh``, the responses to the cut
+    couplings). ``wrap`` couples the first sub-block to the last, both ways
+    (a periodic line's cyclic corners); without it their outer loads are
+    zero. Each takes O(bz) work: three Thomas solves a sub-block, never its
+    dense inverse (a whole line of a prime length is one sub-block)."""
     dl, d, du = lhs_bands(scheme, nl, first_block=first, last_block=last)
     bz = nl // nb
-    out = []
+    parts = {k: [] for k in ("w", "invd", "du", "t0", "uh", "lh")}
     for b in range(nb):
         s, e = b * bz, (b + 1) * bz
-        sdl, sdu = dl[s:e].copy(), du[s:e].copy()
-        up_c = sdl[0]
-        lo_c = du[e - 1] if e < nl else 0.0
+        sdl, sd, sdu = dl[s:e].copy(), d[s:e], du[s:e].copy()
+        up_c = sdl[0] if b > 0 else wrap
+        lo_c = du[e - 1] if e < nl else wrap
         sdl[0] = 0.0
         sdu[-1] = 0.0
-        tinv = np.linalg.inv(_dense(sdl, d[s:e], sdu))
-        uh_b = -up_c * tinv[:, 0] if b > 0 else np.zeros(bz)
-        lh_b = -lo_c * tinv[:, -1] if b < nb - 1 else np.zeros(bz)
-        out.append(((sdl, d[s:e].copy(), sdu), tinv, uh_b, lh_b))
-    return out
+        ends = np.zeros((bz, 2))
+        ends[0, 0] = ends[-1, 1] = 1.0
+        cols = tridiag._thomas_solve_np(sdl, sd, sdu, ends)  # inverse's columns 0, bz - 1
+        # its row 0: column 0 of the transpose, whose bands are (du, d, dl) shifted
+        t0 = tridiag._thomas_solve_np(np.roll(sdu, 1), sd, np.roll(sdl, -1), ends[:, 0])
+        tf = tridiag.thomas_factor(sdl, sd, sdu)
+        for k, v in (("w", tf.w), ("invd", tf.invd), ("du", tf.du), ("t0", t0),
+                     ("uh", -up_c * cols[:, 0] if b > 0 or wrap else np.zeros(bz)),
+                     ("lh", -lo_c * cols[:, 1] if b < nb - 1 or wrap else np.zeros(bz))):
+            parts[k].append(v)
+    return {k: np.concatenate(v) for k, v in parts.items()}
 
 
 @dataclasses.dataclass(frozen=True)

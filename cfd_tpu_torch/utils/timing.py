@@ -28,14 +28,15 @@ from typing import Callable
 import torch
 
 __all__ = ["cuda_time_ms", "time_ms", "spec_roofline_pts_per_s", "HBM_BYTES_PER_S",
-           "F32_FLOPS_PER_S", "BF16_FLOPS_PER_S"]
+           "F32_FLOPS_PER_S", "BF16_FLOPS_PER_S", "TF32_FLOPS_PER_S"]
 
 # The H100 SXM's published rates (NVIDIA's data sheet, at 700 W): HBM3,
-# shared by reads and writes; float32 outside the tensor cores; bf16
-# operands with float32 accumulation on the tensor cores (dense).
+# shared by reads and writes; float32 outside the tensor cores; bf16 and
+# TF32 operands with float32 accumulation on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 
 _SPIN_HZ = 2e9  # spin cycles a second: above any H100 clock, so the spin only lasts longer
 

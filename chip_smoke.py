@@ -43,9 +43,13 @@ script exits non-zero without printing the final line:
               not; K13 for the four d1 schemes at (64, 128, 8192), 256^3
               and (40, 96, 200), and K2's rk mode for the four d2 schemes
               at (64, 128, 8192) and 256^3 (first, middle and last
-              substep, at nu = 1e-3 and at dt * nu = 1). Gate: max|err| <=
-              1e-5 * max|ref|, 5e-5 for second derivatives with closure
-              rows; K11/K12 at the JAX dist kernels' gates (2e-6; 2e-5 d2
+              substep, at nu = 1e-3 and at dt * nu = 1); K1's chains on
+              lines of 512, 1024 and 8192 points and on lines of 257 and
+              63 (one chain, the whole line) at ragged line counts, every
+              scheme and filter but at 8192 (a d1, d2 and filter each
+              periodic and not), with and without its acc epilogue. Gate:
+              max|err| <= 1e-5 * max|ref|, 5e-5 for second derivatives
+              with closure rows; K11/K12 at the JAX dist kernels' gates (2e-6; 2e-5 d2
               with closures; 5e-6 periodic filters, 1e-4 filters with
               closures).
 4. accuracy — dfdx of sin(x) against cos(x) (5e-4) and d2fdx2 of sin(x)
@@ -144,8 +148,8 @@ script exits non-zero without printing the final line:
               bound and its library call (Tensor.copy_; torch.matmul in
               float32; torch.bmm of bf16 casts with a float32 output; rolls:
               its unfused torch.roll form), and
-              K1 at (64, 64, 512) and (32768, 512), queued, beside its plain
-              version and its library call.
+              K1 at (64, 64, 512), (32768, 512) and (64, 128, 8192), queued,
+              beside its plain version, its library call and its bound.
 9. bench_scripts — each ported benchmark script's main
               (cfd_tpu_torch/benchmarks/) on the card, in this process, with
               the launch counts zeroed before and read after each: diag_lane
@@ -670,9 +674,39 @@ def phase_kernels(dev) -> dict:
     _slice4_cases(stats, failures, g, dev)
     _slice5_cases(stats, failures, g, dev)
     _slice6_cases(stats, failures, g, dev)
+    _chain_cases(stats, failures, g, dev)
     if failures:
         raise AssertionError("kernel vs plain over the gate: " + "; ".join(failures))
     return stats
+
+
+# K1's chains (csrc/line_chains.cuh) at ragged line counts: n = 512, 1024
+# and 8192, and lines that no divisor cuts into chains of 32 rows (257, 63:
+# one chain, the whole line); every derivative scheme and filter, but at
+# 8192 a d1, a d2 and a filter each periodic and not (whose dense float64
+# plain version takes seconds a scheme on the host)
+CHAIN_SHAPES = ((3, 37, 512), (37, 1024), (3, 8192), (3, 37, 257), (5, 7, 63))
+CHAIN_LONG_SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME6_D2, ct.SCHEME4_D2_PERIODIC,
+                      FILTERS[2], FILTERS[3]]
+
+
+def _chain_cases(stats, failures, g, dev):
+    """K1's chains against the plain float64 version, with and without the
+    acc epilogue (f' + acc, pair_subtract's x half)."""
+    for shape in CHAIN_SHAPES:
+        n = shape[-1]
+        f = torch.randn(shape, generator=g, device=dev)
+        acc = torch.randn(shape, generator=g, device=dev)
+        schemes = D1_SCHEMES + D2_SCHEMES + FILTERS if n < 8192 else CHAIN_LONG_SCHEMES
+        for scheme in schemes:
+            kernel = "compact_lane_filter" if scheme.derivative_order == 0 else "compact_lane"
+            label = f"chains nb={lane.line_nb(n)} {scheme.name} {tuple(shape)}"
+            ref = lane.lane_derivative_ref(f.double(), 0.01, scheme)
+            _compare(stats, kernel, label, lane.lane_derivative(f, 0.01, scheme), ref, failures,
+                     _gate(scheme))
+            _compare(stats, kernel, label + " + acc", lane.launch(f, 0.01, scheme, acc),
+                     ref + acc.double(), failures, _gate(scheme))
+            del ref
 
 
 def phase_accuracy(dev) -> None:
@@ -2057,8 +2091,9 @@ def phase_diag(dev, smi) -> dict:
     copies; torch.matmul(T, f.view(2, 128, L)) for dots; for dots_default
     the same as torch.bmm of the bf16 casts, made inside the call, with a
     float32 output; rolls has none: its unfused torch.roll form is timed);
-    and K1 at (64, 64, 512) and at n = 512 (row 2), queued, beside its plain
-    version and its library call, queued too."""
+    and K1 at (64, 64, 512), (32768, 512) and (64, 128, 8192) (row 2),
+    queued, beside its plain version, its library call (queued too) and
+    its bound."""
     stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS if k.startswith("diag")}
     failures = []
     g = torch.Generator(device=dev).manual_seed(20261025)
@@ -2104,18 +2139,21 @@ def phase_diag(dev, smi) -> dict:
                 g1 = torch.roll(xz, -1, 0) - xz
                 return g1 + torch.roll(g1, 1, 0)
             times[key]["unfused_ms"] = cuda_time_ms(unfused, **q)
-    # row 2: K1 on lines of 512 points, device time alone
+    # row 2: K1 on lines of 512 and 8192 points, device time alone
     dx = 0.01
-    for shape in (N512, (N * N // 2, 2 * N)):
+    for shape in (N512, (N * N // 2, 2 * N), LONG):
+        n = shape[-1]
         f = torch.randn(shape, generator=g, device=dev)
-        M = torch.as_tensor(dense.dense_operator(ct.SCHEME4_PERIODIC, shape[-1]) / dx,
+        M = torch.as_tensor(dense.dense_operator(ct.SCHEME4_PERIODIC, n) / dx,
                             dtype=torch.float32, device=dev).T.contiguous()
         t = _turns(lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC, method="matmul"),
                    lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC, method="kernel"), **q)
-        t["library_ms"] = cuda_time_ms(lambda: torch.matmul(f.view(-1, shape[-1]), M), **q)
+        t["library_ms"] = cuda_time_ms(lambda: torch.matmul(f.view(-1, n), M), **q)
         t["kernel_host_ms"] = cuda_time_ms(lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC))
         t["bound_ms"] = 8 * f.numel() / HBM_BYTES_PER_S * 1e3
-        times[f"compact_lane_n512_{'x'.join(map(str, shape))}"] = t
+        t["nb"] = lane.line_nb(n)
+        times[f"compact_lane_n{n}_{'x'.join(map(str, shape))}"] = t
+        del M
     emit({"phase": "diag_times", "device": smi, "dtype": "float32", "copy_floor_ms": copy_ms,
           **times, "note": "queued: every call issued behind a spin kernel, device time alone"})
     return {"stats": stats, "times": times}
@@ -2275,9 +2313,17 @@ def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
             "copy_bound_ms": 8 * pts / copy_rate * 1e3,
             "library_ms": t["library_ms"],
             **({"unfused_ms": t["unfused_ms"]} if "unfused_ms" in t else {}),
+            **({"fma_bound_ms": bench_dfdz.fma_bound_ms(pts)} if name == "diag_dfdz_dots"
+               else {}),
             "timed": [f"{name} {next(v for k, v in DIAG_TIMED.items() if name.startswith(k))} "
                       "f32, queued"],
         })
+    # row 2: K1 on lines of 512 and 8192 points, queued
+    lane_row = next(r for r in rows if r["name"] == "compact_lane")
+    lane_row["long_lines"] = {
+        key.removeprefix("compact_lane_"): {k: t[k] for k in (
+            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "nb")}
+        for key, t in diag_out["times"].items() if key.startswith("compact_lane_n")}
     return rows
 
 

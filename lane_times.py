@@ -1,0 +1,76 @@
+#!/usr/bin/env python3
+"""Device time of K1 (``compact_lane``) on one card, queued.
+
+Times the checkout in the working directory, so that two checkouts can be
+held against each other in one run on one card:
+
+    python3 lane_times.py                          # this checkout
+    (cd ../other && python3 ../repo/lane_times.py)  # another one
+
+Cases, float32, ``lane_derivative`` (the x derivative that ``dfdx`` and
+``filter_field`` launch): on cubes of 64, 128 and 256 points a d1
+(SCHEME4_PERIODIC), a d2 (SCHEME4_D2_PERIODIC) and the sixth-order
+periodic filter (row 1 of PERF.md's kernel table); SCHEME4_PERIODIC at
+(64, 64, 512), (32768, 512) and (64, 128, 8192) (row 2); and, on lines
+that no divisor cuts into chains of 32 rows, (256, 256, 257) and (512,
+512, 63), SCHEME4_PERIODIC, SCHEME4 and the periodic filter. Each is timed
+with CUDA events around calls all issued behind a spin kernel
+(``cuda_time_ms(..., queued=True)``: the kernel plus its launch, no host
+time), beside its library call (one ``torch.matmul`` with the dense
+float32 operator, queued too) and its byte bound (one read and one write
+of each point at 3.35 TB/s). Prints the card's name and power limit, then
+one JSON line; exits non-zero without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+
+import torch
+
+sys.path.insert(0, ".")  # the checkout being timed, not this script's
+
+import cfd_tpu_torch as ct  # noqa: E402
+from cfd_tpu_torch.ops import dense, lane  # noqa: E402
+from cfd_tpu_torch.utils.timing import HBM_BYTES_PER_S, cuda_time_ms  # noqa: E402
+
+FILTER = ct.get_filter(6, 0.45, periodic=True)
+CASES = (  # (shape, schemes)
+    *(((n, n, n), (ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC, FILTER)) for n in (64, 128, 256)),
+    *((shape, (ct.SCHEME4_PERIODIC,)) for shape in ((64, 64, 512), (32768, 512), (64, 128, 8192))),
+    *((shape, (ct.SCHEME4_PERIODIC, ct.SCHEME4, FILTER)) for shape in ((256, 256, 257),
+                                                                     (512, 512, 63))),
+)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("lane_times.py times the card; no CUDA device here")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(20261017)
+    res = {}
+    for shape, schemes in CASES:
+        f = torch.randn(shape, generator=g, device=dev)
+        n = shape[-1]
+        dx = 2 * math.pi / n
+        for scheme in schemes:
+            M = torch.as_tensor(dense.dense_operator(scheme, n) / dx ** scheme.derivative_order,
+                                dtype=torch.float32, device=dev).T.contiguous()
+            res[f"{scheme.name} {'x'.join(map(str, shape))}"] = {
+                "kernel_ms": cuda_time_ms(lambda: lane.lane_derivative(f, dx, scheme),
+                                          queued=True),
+                "library_ms": cuda_time_ms(lambda: torch.matmul(f.view(-1, n), M), queued=True),
+                "bound_ms": 8 * f.numel() / HBM_BYTES_PER_S * 1e3,
+            }
+            del M
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()

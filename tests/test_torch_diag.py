@@ -196,6 +196,68 @@ def test_dfdz_dots_default_ref_matches_bf16_dot(jx):
     assert _rel(got, dots) > 1e-4
 
 
+# K15's dots on the tensor cores, emulated in numpy: tf32 by rounding the
+# float32 mantissa to 10 bits (cvt.rna: to nearest, ties away from zero),
+# bf16 to 7 bits (to nearest even); products of the rounded operands are
+# exact in float32, and the float32 sums run a k-step of the mma at a time.
+
+
+def _tf32(x):
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+
+def _bf16(x):
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000).astype(np.uint32).view(np.float32)
+
+
+def _mma_blocks(x, terms, ksteps):
+    """out[128 b:] = the float32 sum, a k-step of ``ksteps`` at a time, of
+    the products ``terms(T[b], x_b)`` lists for each block b."""
+    T = diag.dfdz_table(x.shape[0], "cpu").numpy()
+    out = np.empty_like(x)
+    for b in range(x.shape[0] // diag.BLOCK):
+        xb = x[b * diag.BLOCK:(b + 1) * diag.BLOCK]
+        acc = np.zeros_like(xb)
+        for k0 in range(0, diag.BLOCK, ksteps):
+            s = slice(k0, k0 + ksteps)
+            for a, f in terms(T[b], xb):
+                acc += a[:, s] @ f[s]
+        out[b * diag.BLOCK:(b + 1) * diag.BLOCK] = acc
+    return out
+
+
+def test_dots_3xtf32_split_within_gate():
+    """dots' 3xTF32 split (x = hi + lo, each a tf32, summed as hi lo + lo hi
+    + hi hi) on the diag_dfdz table at nz = 256 stays within 3e-6 of
+    max|ref| against float64; plain TF32 (hi hi alone) does not."""
+    x = np.random.default_rng(7).standard_normal((NZ, 384)).astype(np.float32)
+    exact = diag.dfdz_stage_ref(torch.from_numpy(x).double(), "dots", COLS,
+                                diag.dfdz_table(NZ, "cpu").double()).numpy()
+
+    def split(a):
+        hi = _tf32(a)
+        return hi, _tf32(a - hi)
+
+    def three(T, f):
+        (th, tl), (fh, fl) = split(T), split(f)
+        return [(th, fl), (tl, fh), (th, fh)]
+
+    assert _rel(_mma_blocks(x, three, 8), exact) <= 3e-6
+    plain = _mma_blocks(x, lambda T, f: [(_tf32(T), _tf32(f))], 8)
+    assert _rel(plain, exact) > 1e-4
+
+
+def test_dots_default_bf16_mma_equals_plain():
+    """dots_default's bf16 operands with float32 sums, a k16 step at a
+    time, equal the plain version within 1e-6 of max|ref|."""
+    x = np.random.default_rng(8).standard_normal((NZ, 384)).astype(np.float32)
+    got = _mma_blocks(x, lambda T, f: [(_bf16(T), _bf16(f))], 16)
+    want = diag.dfdz_stage_ref(torch.from_numpy(x), "dots_default", COLS).numpy()
+    assert _rel(got, want) <= 1e-6
+
+
 def test_wrappers_on_cpu_take_the_plain_version():
     x = torch.from_numpy(_field((NZ, L), seed=4))
     before = (dict(diag.COPY_LAUNCHES), dict(diag.DFDZ_LAUNCHES))
@@ -269,6 +331,25 @@ def test_dfdz_kernel_matches_plain(cuda, nz, L, C):
     got = diag.dfdz_stage(x, "dots_default", C)
     assert rel(got, diag.dfdz_stage_ref(x, "dots_default", C)) <= 1e-5
     assert rel(got, exact) <= 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 1024])
+@pytest.mark.parametrize("nz,L", [(128, 1024), (256, 8192), (512, 3072)])
+def test_dfdz_tensor_core_dots_match_plain(cuda, nz, L, C):
+    """The dots stages on the tensor cores (bf16 mma for dots_default, a
+    3xTF32 split for dots) on sub-tile counts that the grid does not
+    divide: dots within 3e-6 of max|ref| of float64, dots_default within
+    1e-5 of its bf16-operand plain version and apart from float32 dots."""
+    x = torch.randn((nz, L), device=cuda)
+    T = diag.dfdz_table(nz, cuda)
+    exact = diag.dfdz_stage_ref(x.double(), "dots", C, T.double())
+    rel = lambda got, ref: ((got.double() - ref.double()).abs().max() / ref.abs().max()).item()
+    dots = diag.dfdz_stage(x, "dots", C)
+    assert rel(dots, exact) <= 3e-6
+    got = diag.dfdz_stage(x, "dots_default", C)
+    assert rel(got, diag.dfdz_stage_ref(x, "dots_default", C)) <= 1e-5
+    assert rel(got, dots) > 1e-4
 
 
 @pytest.mark.gpu

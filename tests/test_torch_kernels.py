@@ -249,6 +249,30 @@ def test_lane_kernel_matches_plain(cuda, scheme, shape):
     assert _rel_err(got, ref) <= _gate(scheme)
 
 
+# K1's chains (csrc/line_chains.cuh): lines of 512, 1024, 1000 (25 chains
+# of 40 rows) and 8192 points, ragged line counts, with and without the acc
+# epilogue; the last cases are lines that no divisor cuts into chains of 32
+# rows (one chain, the whole line: 257 points, 37, 8191)
+CHAIN_SHAPES = [(5, 3, 512), (37, 1024), (7, 1000), (3, 8192), (5, 257), (9, 3, 37), (2, 8191)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acc", [False, True], ids=["plain", "acc"])
+@pytest.mark.parametrize("shape", CHAIN_SHAPES,
+                         ids=[f"{s}-nb{lane.line_nb(s[-1])}" for s in CHAIN_SHAPES])
+@pytest.mark.parametrize("scheme", SCHEMES, ids=IDS)
+def test_lane_chains_kernel_matches_plain(cuda, scheme, shape, acc):
+    g = torch.Generator(device="cpu").manual_seed(8)
+    f = (torch.randn(shape, generator=g) + 0.5).to(cuda)
+    a = torch.randn(shape, generator=g).to(cuda) if acc else None
+    got = lane.launch(f, 0.05, scheme, a)
+    torch.cuda.synchronize()
+    ref = lane.lane_derivative_ref(f.double(), 0.05, scheme)
+    if acc:
+        ref = ref + a.double()
+    assert _rel_err(got, ref) <= _gate(scheme)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "axis,shape", [(1, (4, 256, 40)), (0, (96, 5, 33)), (1, (2, 64, 1)), (0, (7, 3, 5))]
