@@ -6,8 +6,9 @@
 // with D1 any first-derivative scheme (periodic, or with closure rows). It
 // is the stepwise head of the fused RK3 substep (ops/fused_step.py) on
 // x-lines too long for K3, whose x phase stages two lines per line (f for
-// this family and T_z f for the Laplacian's): with one staged line it takes
-// nx up to 12278, where K3 stops at 6134.
+// this family and T_z f for the Laplacian's) and stops at nx = 6134; the
+// substep routes K13 up to nx = 12278 (ops/pair.py `adv_pair_supported`),
+// and the kernel takes any line an opted-in block holds.
 //
 // Replaces: cfd_tpu/ops/pallas_pair.py `_adv_pair_kernel` (called by
 // `_call_adv_pair`), which holds one (ny, nx) plane in VMEM, applies the
@@ -16,24 +17,38 @@
 //
 // Bound on Hopper: by its work, bytes. The least it must move is 3 reads
 // (f, ux, uy) and 1 write of f32 per point (4 passes, 268 MB at 256^3,
-// 1.07 GB at (64, 128, 8192)); its two line solves are ~52 flops a point.
-// It is one advection family of xy_phase.cuh, alone (K3's first family
-// without the second): the y phase walks (plane, x) columns down y as K2
-// does and stores uy D1y f, the x phase stages x-lines of f in shared
-// memory as K1 does, solves them in place and adds ux D1x f into the
-// output. That moves ~8 passes (the y phase's scratch round trip, the
-// output's read-modify-write and f read twice), and both phases are
-// latency-bound recurrences like K1 and K2 (PERF.md).
+// 1.07 GB or 0.3205 ms at 3.35 TB/s at (64, 128, 8192)); its two line
+// solves are ~52 flops a point. It is one advection family of
+// xy_phase.cuh, alone (K3's first family without the second): the y phase
+// walks (plane, x) columns down y as K2 does and stores uy D1y f. That
+// moves ~8 passes (the y phase's scratch round trip, the output's
+// read-modify-write and f read twice), and the y phase is a latency-bound
+// recurrence like K2.
+//
+// Design of the x phase (xy_phase.cuh `xy_chain_launch`): K1's sub-block
+// Thomas chains (line_chains.cuh). Each block stages L x-lines of f with
+// cp.async into the chain layout; each line is cut into ops/lane.py
+// `line_nb(nx)` sub-blocks of >= 32 rows (128 chains of 64 rows at nx =
+// 8192; one chain, the whole line, where no divisor leaves 32 rows), one
+// thread a chain, and the block adds ux D1x f into the output, coalesced.
+// Where one thread walked a whole staged line (the form this replaced), a
+// block at nx = 8192 had one busy thread.
 
 #include "xy_phase.cuh"
 
-// f, ux, uy, out: (planes, ny, nx); out aliases no input. tabx/cx, taby/cy:
-// the d1 scheme along x (n = nx, scaled by 1/dx) and y (n = ny, by 1/dy).
+// f, ux, uy, out: (planes, ny, nx); out aliases no input. taby/cy: the d1
+// scheme along y (n = ny, scaled by 1/dy); cx with chx, nb, h, win: along x
+// (n = nx, scaled by 1/dx), its chain table (ops/lane.py `chain_table`) for
+// nb sub-blocks a line.
 extern "C" int cfd_adv_pair(const float* f, const float* ux, const float* uy, float* out,
-                            const float* taby, const float* tabx, const Coef* cy,
-                            const Coef* cx, int planes, void* stream) {
-  XYArgs a = xy_args(taby, taby, tabx, tabx, cy, cy, cx, cx, nullptr, nullptr, planes, 0);
+                            const float* taby, const float* chx, const Coef* cy, const Coef* cx,
+                            int planes, int nb, int h, int win, void* stream) {
+  XYArgs a = xy_args(taby, taby, nullptr, nullptr, cy, cy, cx, cx, nullptr, nullptr, planes, 0);
   a.fam[0] = {f, f, uy, ux, nullptr, out, 0, 0};
   a.nfam = 1;
-  return xy_launch(a, stream);
+  a.chx = chx;
+  a.nb = nb;
+  a.h = h;
+  a.win = win;
+  return xy_chain_launch<true>(a, stream);
 }

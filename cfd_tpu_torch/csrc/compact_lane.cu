@@ -62,12 +62,12 @@ __global__ void __launch_bounds__(LANE_CHAIN_THREADS)
   float* ob = out + line0 * n;
   const float* ab = ACC ? acc + line0 * n : nullptr;
 
-  walk_chains(count, n, nb, cs, [&](int e, int at) { cp_async4(tile + at, fb + e); });
+  walk_chains(count, n, nb, cs, [&](int e, int at, int) { cp_async4(tile + at, fb + e); });
   cp_async_wait_all();
   __syncthreads();
-  solve_line_chain<K>(c, tab, nb, h, win, tile, cs, faces);
+  solve_line_chain<K>(c, tab, nb, h, win, tile, cs, faces, threadIdx.x);
   __syncthreads();
-  walk_chains(count, n, nb, cs, [&](int e, int at) {
+  walk_chains(count, n, nb, cs, [&](int e, int at, int) {
     ob[e] = ACC ? tile[at] + __ldg(ab + e) : tile[at];
   });
 }

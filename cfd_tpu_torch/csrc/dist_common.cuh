@@ -68,6 +68,7 @@
 #define DIST_BEHIND 4                  // z rows the backward sweep holds below its row
 #define DIST_STEP 4                    // rows a sweep takes at a time in a chain's middle
 #define DIST_SMEM_DEFAULT (48 * 1024)  // bytes a block gets without opting in
+#define CHAIN_BARRIERS 2               // the __syncthreads() of one solve_chain call
 #define DIST_MAX_DEVICES 64
 
 // v[j] for a register array, 0 <= j < K.
@@ -172,7 +173,8 @@ struct DistTab {
 // c.K). `store(g, x_g)` receives the solution with the intra update and,
 // with AB, the shard update a suh + b slh, from row e down to s.
 // `faces[j * fstride]`, j < 2 nb, is this line's face slot in shared
-// memory. Every thread of the block calls it: it holds two barriers.
+// memory. Every thread of the block calls it, or passes CHAIN_BARRIERS
+// barriers of its own in whole warps: it holds two barriers.
 //
 // The sweeps are bound by the instructions they issue and by latency (16
 // warps an SM at a 128^3 shard). Each runs its middle rows without a test

@@ -12,25 +12,38 @@
 // VMEM and applies the pair kernels' x and y fold bodies to each slab.
 //
 // Bound on Hopper: by its work, bytes. The least it must move is 1 read and
-// 1 write of f32 per point (2 passes, 134 MB at 256^3); its ~64 flops per
-// point take far less. It is K3's z-RHS family alone: one family of
-// xy_phase.cuh (a y phase and an x phase, counted as one call by the
-// wrapper), exactly K6's structure with the d2 scheme and f as sy, sx and
-// bz. The y phase solves D2y on h = T_z f, formed from three planes as it
-// reads, and stores it plus B_z f; the x phase stages h lines as K1 stages
-// f and adds D2x of them. That moves ~7 passes, and both phases are
-// latency-bound recurrences like K1 and K2 (PERF.md).
+// 1 write of f32 per point (2 passes, 134 MB at 256^3, 537 MB or 0.160 ms
+// at 3.35 TB/s at (64, 128, 8192)); its ~64 flops per point take far less.
+// It is K3's z-RHS family alone: one family of xy_phase.cuh (a y phase and
+// an x phase, counted as one call by the wrapper), K6's structure with the
+// d2 scheme and f as sy, sx and bz. The y phase solves D2y on h = T_z f,
+// formed from three planes as it reads, and stores it plus B_z f. That
+// moves ~7 passes, and the y phase is a latency-bound recurrence like K2.
+//
+// Design of the x phase (xy_phase.cuh `xy_chain_launch`): K1's sub-block
+// Thomas chains (line_chains.cuh). Each block stages L lines of h = T_z f,
+// each line's T_z row made once, into the chain layout; each line is cut
+// into ops/lane.py `line_nb(nx)` sub-blocks of >= 32 rows (128 chains of 64
+// rows at nx = 8192, 8 of 32 at 256; one chain, the whole line, where no
+// divisor leaves 32 rows), one thread a chain, and the block adds D2x h
+// into r, coalesced. Where one thread walked a whole staged line (the form
+// K6 keeps), a block at nx = 8192 had one busy thread.
 
 #include "xy_phase.cuh"
 
-// f, r: (nz, ny, nx); r does not alias f. tab2y/c2y, tab2x/c2x: the periodic
-// d2 scheme along y and x (scaled by 1/dy^2 and 1/dx^2); bt, tt: its z
-// tables (nz, 2W + 1), scaled by 1/dz^2, and (nz, 3).
-extern "C" int cfd_lap_rhs(const float* f, float* r, const float* tab2y, const float* tab2x,
+// f, r: (nz, ny, nx); r does not alias f. tab2y/c2y: the periodic d2 scheme
+// along y (scaled by 1/dy^2); c2x with chx, nb, h, win: along x (scaled by
+// 1/dx^2), its chain table (ops/lane.py `chain_table`) for nb sub-blocks a
+// line; bt, tt: its z tables (nz, 2W + 1), scaled by 1/dz^2, and (nz, 3).
+extern "C" int cfd_lap_rhs(const float* f, float* r, const float* tab2y, const float* chx,
                            const float* bt, const float* tt, const Coef* c2y, const Coef* c2x,
-                           int nz, int W, void* stream) {
-  XYArgs a = xy_args(tab2y, tab2y, tab2x, tab2x, c2y, c2y, c2x, c2x, bt, tt, nz, W);
+                           int nz, int W, int nb, int h, int win, void* stream) {
+  XYArgs a = xy_args(tab2y, tab2y, nullptr, nullptr, c2y, c2y, c2x, c2x, bt, tt, nz, W);
   a.fam[0] = {f, f, nullptr, nullptr, f, r, 0, 1};
   a.nfam = 1;
-  return xy_launch(a, stream);
+  a.chx = chx;
+  a.nb = nb;
+  a.h = h;
+  a.win = win;
+  return xy_chain_launch<false>(a, stream);
 }

@@ -1,8 +1,10 @@
 // A whole line cut into sub-block Thomas chains (K1, compact_lane.cu, on
-// lines of every length): the chain layout of a block's lines in
-// shared memory and the table a chain reads, for dist_common.cuh's
-// solve_chain. Any kernel that stages x-lines can run them (the x phases of
-// xy_phase.cuh stage the same lines and solve each with one thread).
+// lines of every length; the x phases of K9, lap_rhs.cu, and K13,
+// adv_pair.cu, in xy_phase.cuh's xy_chain_x_kernel): the chain layout of a
+// block's lines in shared memory and the table a chain reads, for
+// dist_common.cuh's solve_chain. Any kernel that stages x-lines can run
+// them (the other x phases of xy_phase.cuh, and K7's, stage the same lines
+// and still solve each with one thread).
 //
 // A line of n points is cut into nb sub-blocks of bz = n / nb rows; chain
 // k runs rows s = k bz .. e = s + bz - 1. A periodic line is one ring: the
@@ -100,7 +102,7 @@ struct LineTab {
 };
 
 // The tile offset of element e = l n + k bz + i of a block's lines, walked
-// without a division: `body(e, i * cs + l * nb + k)` for e = threadIdx.x,
+// without a division: `body(e, i * cs + l * nb + k, l)` for e = threadIdx.x,
 // threadIdx.x + blockDim.x, ... below count.
 template <class Body>
 __device__ __forceinline__ void walk_chains(int count, int n, int nb, int cs, Body body) {
@@ -112,7 +114,7 @@ __device__ __forceinline__ void walk_chains(int count, int n, int nb, int cs, Bo
   int k = g / bz;
   int i = g - k * bz;
   for (int e = threadIdx.x; e < count; e += T) {
-    body(e, i * cs + l * nb + k);
+    body(e, i * cs + l * nb + k, l);
     i += di;
     if (i >= bz) {
       i -= bz;
@@ -127,18 +129,19 @@ __device__ __forceinline__ void walk_chains(int count, int n, int nb, int cs, Bo
   }
 }
 
-// Thread c = l nb + k of a block solves chain k of its line l in place in
-// the tile (layout above), against the chain table `tab` (h, win: its
-// reduced rows' window); `faces` holds 2 nb slots a line. Every thread of
-// the block calls it (solve_chain's barriers); a line past the block's last
-// runs on whatever its slots hold and is never written back.
+// The thread of chain index t = l nb + k solves chain k of its block's
+// line l in place in the tile (layout above), against the chain table
+// `tab` (h, win: its reduced rows' window); `faces` holds 2 nb slots a
+// line. The block's chains are L nb consecutive threads; each calls it,
+// and every other thread passes solve_chain's CHAIN_BARRIERS barriers in
+// whole warps. A line past the block's last runs on whatever its slots
+// hold and is never written back.
 template <int K>
 __device__ __forceinline__ void solve_line_chain(const Coef& c, const float* __restrict__ tab,
                                                  int nb, int h, int win, float* tile, int cs,
-                                                 float* faces) {
+                                                 float* faces, int t) {
   const int n = c.n;
   const int bz = n / nb;
-  const int t = threadIdx.x;
   const int l = t / nb;
   const int k = t - l * nb;
   // line[g * cs] is row g of this chain (k bz <= g < (k + 1) bz)

@@ -26,11 +26,11 @@
 //   K13 axy = ux Dx f + uy Dy f          (advection alone: no z work at all)
 //
 // A launch is of the first two kinds (`weighted` = 0), weighted throughout,
-// or, unpaired, advection throughout; the weighted and the advection-only
-// kinds have x kernels of their own, so K3, K5 and K6 compile to the same
-// code as before they existed. An advection-only launch stages one x-line
-// per line, so it takes x-lines up to 48 KB (nx <= 12278), where a paired
-// launch takes two (nx <= 6134).
+// or, unpaired, advection throughout. The weighted kind has an x kernel of
+// its own, so K3, K5 and K6 compile to the same code as before it existed.
+// The unpaired z-RHS launch of K9 and the advection-only launch of K13 run
+// the chained x phase (below), which takes any line an opted-in block
+// holds; a paired launch's two staged lines take nx <= 6134.
 //
 // A 256^2 plane (256 KB) does not fit one block's 227 KB of shared memory,
 // so a launch is two kernels on one stream:
@@ -40,12 +40,22 @@
 //    warp is coalesced). A z-RHS family forms T_z sy from three planes as
 //    it reads. The forward sweep keeps its values in `out`, and the
 //    backward sweep stores my * Dy sy, or Dy (T_z sy) + B_z bz, there.
-// 2. x phase, as K1: a block stages consecutive x-lines of a z-RHS
-//    family's T_z sx (formed from three planes) and, where an advection
-//    family over the same field comes with it, of sx itself, in shared
-//    memory with coalesced loads, from one read of sx; a warp per family
-//    solves them in place; the block adds them, times mx for advection,
-//    into the outputs, coalesced.
+// 2. x phase, in one of two forms:
+//    - one thread a line (K3, K5, K6, K8, K10: `xy_launch`): a block stages
+//      consecutive x-lines of a z-RHS family's T_z sx (formed from three
+//      planes) and, where an advection family over the same field comes
+//      with it, of sx itself, in shared memory with coalesced loads, from
+//      one read of sx; a warp per family solves them in place, one thread
+//      a line; the block adds them, times mx for advection, into the
+//      outputs, coalesced. At nx = 8192 that is one busy thread a block.
+//    - sub-block chains (K9, K13: `xy_chain_launch`, with the chain table
+//      of ops/lane.py `chain_table` in XYArgs, `nb` > 0): as K1 does
+//      (compact_lane.cu, line_chains.cuh), a block stages L lines of T_z sx
+//      (K9, formed from three planes with each line's TzRow, made once a
+//      line) or of sx (K13, with cp.async) into the chain layout, cuts each
+//      line into nb sub-blocks of >= 32 rows (ops/lane.py `line_nb`) and
+//      runs their Thomas chains one a thread, L nb threads a block; then
+//      adds them, times mx for advection, into the output, coalesced.
 //
 // Families (x: pairs of them) sit on the grid's y axis, so the branch on a
 // family's kind is uniform in a block, and each kind's body is compiled
@@ -57,7 +67,9 @@
 // phase's scratch round trip and the x phase's read-modify-write of every
 // output, and reads the neighbouring planes that form h and B_z (mostly L2
 // hits, since all columns walk y together). Both phases are latency-bound
-// recurrences like K1 and K2 (PERF.md).
+// recurrences like K1 and K2; the one-thread-a-line x phase far more so on
+// long lines, where the chained one keeps a warp's 32 chains on 32
+// consecutive words at every step (PERF.md).
 //
 // B_z g is formed from differences to the point's own value,
 // sum_{k != 0} bt[p,k] (g[p+k] - g[p]): a derivative's row annihilates
@@ -65,10 +77,12 @@
 // O(1/dz**order) products would lose ~1e-4 of an O(1) result in float32.
 //
 // Everything here is in an anonymous namespace: each source that includes
-// it gets its own copy of the kernels.
+// it gets its own copy of the kernels. The chained x phase is a template
+// of its launch (`xy_chain_launch<ADV>`), so only the two sources that call
+// it build its kernels.
 #pragma once
 
-#include "compact_common.cuh"
+#include "line_chains.cuh"
 
 namespace {
 
@@ -77,7 +91,9 @@ namespace {
 #define XY_Y_THREADS 128         // y phase: columns per block
 #define XY_X_THREADS 128         // x phase: >= 32 + the lines a block stages
 #define XY_X_LINES 32            // x phase: lines per block, halved to fit
-#define XY_X_SMEM (48 * 1024)    // x phase: bytes a block stages
+#define XY_X_SMEM (48 * 1024)    // x phase: bytes a block stages without opting in
+#define XY_CHAIN_THREADS 256     // chained x phase: the most chains a block runs
+#define XY_CHAIN_STAGERS 128     // chained x phase: the fewest threads a block stages with
 
 struct ZTab {
   const float* bt;  // (nz, 2W + 1): B_z / dz**order, row p, offset k at [p][k + W]
@@ -110,6 +126,11 @@ struct XYArgs {
   int weighted;                  // 1: every family is weighted (paired = 0)
   int xfam[XY_MAX_FAMILIES];     // weighted: the families with an x term
   int nxfam;                     //   (set by xy_launch)
+  // the chained x phase (xy_chain_launch): the chain table of scheme 0
+  // along x (ops/lane.py `chain_table`), its nb sub-blocks a line and its
+  // reduced rows' window (h, win); nb = 0 for the one-thread-a-line form
+  const float* chx;
+  int nb, h, win;
 };
 
 __device__ __forceinline__ long long wrap_plane(long long p, int d, int nz) {
@@ -323,39 +344,6 @@ __global__ void __launch_bounds__(XY_Y_THREADS, 8) xyw_y_kernel(const __grid_con
   }
 }
 
-// The advection-only x phase (K13): a block stages consecutive x-lines of
-// one family's sx, warp 0 solves them in place, and the block adds mx times
-// them into the family's output.
-__global__ void xya_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
-  extern __shared__ float tile[];
-  const XYFamily& F = a.fam[blockIdx.y];
-  const int n = a.cx[0].n;
-  const int ld = cfd_line_ld(n);
-  const long long lines = (long long)a.zt.nz * a.cy[0].n;
-  const long long line0 = (long long)blockIdx.x * lines_per_block;
-  const long long rest = lines - line0;
-  const int nl = rest < lines_per_block ? (int)rest : lines_per_block;
-  const int count = nl * n;
-  const long long e_base = line0 * n;
-
-  float* const tiles[1] = {tile};
-  stage_lines(tiles, count, n, [&](int e, float* v) { v[0] = __ldg(F.sx + e_base + e); });
-  __syncthreads();
-
-  if (threadIdx.x < nl) {
-    float* line = tile + threadIdx.x * ld;
-    wrap_line(line, n);
-    solve_line(a.cx[F.d2], a.tabx[F.d2], [&](int m) { return line[m]; }, line, 1);
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const int l = e / n;
-    const long long g = e_base + e;
-    F.out[g] += __ldg(F.mx + g) * tile[l * ld + (e - l * n)];
-  }
-}
-
 // The weighted x phase: a block stages consecutive x-lines of Z sx for one
 // family with an x term, warp 0 solves them in place, and the block adds wx
 // times them into the family's output.
@@ -437,16 +425,21 @@ __host__ inline int xyw_launch(XYArgs a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// Both phases of `a` on `stream`. Families, line lengths or a z width the
-// kernels do not take, and x lines past 48 KB, return cudaErrorInvalidValue.
 // An unpaired launch whose first family is an advection family is an
-// advection-only launch: every family must be one, and none reads a z table.
-__host__ inline int xy_launch(const XYArgs& a, void* stream) {
+// advection-only launch: every family must be one, and none reads a z
+// table.
+__host__ inline bool xy_advection(const XYArgs& a) {
+  return !a.paired && !a.weighted && !a.fam[0].rhs;
+}
+
+// Whether `a` is a launch the kernels take: families, line lengths and a z
+// width (each launch checks its x phase's shared memory).
+__host__ inline bool xy_valid(const XYArgs& a) {
   const int ny = a.cy[0].n, nx = a.cx[0].n;
   bool ok = a.nfam >= 1 && a.nfam <= XY_MAX_FAMILIES && a.cy[1].n == ny && a.cx[1].n == nx &&
             a.zt.W >= 0 && a.zt.W <= CFD_MAX_K && a.zt.nz >= 1 && (!a.paired || a.nfam % 2 == 0) &&
             !(a.paired && a.weighted);
-  const bool advection = ok && !a.paired && !a.weighted && !a.fam[0].rhs;
+  const bool advection = ok && xy_advection(a);
   for (int k = 0; ok && k < a.nfam; ++k) {
     const XYFamily& F = a.fam[k];
     if (a.weighted) {
@@ -462,7 +455,24 @@ __host__ inline int xy_launch(const XYArgs& a, void* stream) {
     const bool rhs = !a.paired || k % 2 == 1;
     ok = F.rhs == (int)rhs && (!a.paired || rhs || F.sx == a.fam[k + 1].sx);
   }
-  if (!ok) return (int)cudaErrorInvalidValue;
+  return ok;
+}
+
+// The y phase of every family of `a` on `s`.
+__host__ inline cudaError_t xy_y_launch(const XYArgs& a, cudaStream_t s) {
+  const long long cols = (long long)a.zt.nz * a.cx[0].n;
+  const dim3 ygrid((unsigned)((cols + XY_Y_THREADS - 1) / XY_Y_THREADS), a.nfam);
+  xy_y_kernel<<<ygrid, XY_Y_THREADS, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+// Both phases of `a` on `stream`, the x phase one thread a line (K3, K5,
+// K6, K8, K10). Families, line lengths or a z width the kernels do not
+// take, x lines past 48 KB, a chain table (nb != 0) and an advection-only
+// launch (xy_chain_launch takes those) return cudaErrorInvalidValue.
+__host__ inline int xy_launch(const XYArgs& a, void* stream) {
+  if (!xy_valid(a) || a.nb != 0 || xy_advection(a)) return (int)cudaErrorInvalidValue;
+  const int ny = a.cy[0].n, nx = a.cx[0].n;
   if (a.weighted) {
     if ((size_t)cfd_line_ld(nx) * sizeof(float) > XY_X_SMEM) return (int)cudaErrorInvalidValue;
     return xyw_launch(a, (cudaStream_t)stream);
@@ -471,11 +481,7 @@ __host__ inline int xy_launch(const XYArgs& a, void* stream) {
   const size_t line_bytes = (size_t)cfd_line_ld(nx) * sizeof(float);
   if (tiles * line_bytes > XY_X_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-
-  const long long cols = (long long)a.zt.nz * nx;
-  const dim3 ygrid((unsigned)((cols + XY_Y_THREADS - 1) / XY_Y_THREADS), a.nfam);
-  xy_y_kernel<<<ygrid, XY_Y_THREADS, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = xy_y_launch(a, s);
   if (err != cudaSuccess) return (int)err;
 
   int per_block = XY_X_LINES;
@@ -483,12 +489,128 @@ __host__ inline int xy_launch(const XYArgs& a, void* stream) {
   const long long lines = (long long)a.zt.nz * ny;
   const dim3 xgrid((unsigned)((lines + per_block - 1) / per_block), a.nfam / tiles);
   const size_t smem = tiles * per_block * line_bytes;
-  if (advection) {
-    xya_x_kernel<<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
-  } else if (a.paired) {
+  if (a.paired) {
     xy_x_kernel<true><<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
   } else {
     xy_x_kernel<false><<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The chained x phase (K9 with ADV false: unpaired z-RHS families; K13 with
+// ADV true: advection families): a block runs `lines_per_block` = L lines
+// of one family, nb chains a line, one thread a chain (line_chains.cuh, as
+// compact_lane.cu's kernel). The shared memory holds, for a z-RHS family,
+// the L lines' T_z rows (each made once, by one thread, so that staging
+// an element costs no division or wrap), then the tile of L lines in the
+// chain layout and 2 nb face slots a line. Staging writes T_z sx (three
+// planes; plain stores) or sx (cp.async) there; solve_line_chain solves in
+// place; the block adds the result, times mx for advection, into `out`,
+// coalesced on the element. The chains are the block's last L nb threads.
+// Where they are fewer than XY_CHAIN_STAGERS (a line with few chains: one
+// on a prime line, 14 at nx = 12278), whole warps before them help stage
+// and write back, and pass solve_chain's barriers on their own.
+template <int K, bool ADV>
+__global__ void __launch_bounds__(XY_CHAIN_THREADS)
+    xy_chain_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
+  extern __shared__ float4 chain_smem[];
+  const XYFamily& F = a.fam[blockIdx.y];
+  const Coef& c = a.cx[0];
+  const int n = c.n, nb = a.nb, L = lines_per_block;
+  const long long ny = a.cy[0].n;
+  const long long lines = (long long)a.zt.nz * ny;
+  const long long line0 = (long long)blockIdx.x * L;
+  const long long rest = lines - line0;
+  const int nl = rest < L ? (int)rest : L;
+  const int count = nl * n;
+  const long long e_base = line0 * n;
+  TzRow* tz = reinterpret_cast<TzRow*>(chain_smem);  // L rows (z-RHS only)
+  float* tile = reinterpret_cast<float*>(tz + (ADV ? 0 : L));
+  const int cs = line_chain_stride(L * nb);
+  float* faces = tile + (n / nb) * cs;  // 2 nb a line
+
+  if constexpr (ADV) {
+    walk_chains(count, n, nb, cs,
+                [&](int e, int at, int) { cp_async4(tile + at, F.sx + e_base + e); });
+    cp_async_wait_all();
+  } else {
+    if (threadIdx.x < nl) tz[threadIdx.x] = TzRow(a.zt, (line0 + threadIdx.x) / ny, ny * n);
+    __syncthreads();
+    walk_chains(count, n, nb, cs,
+                [&](int e, int at, int l) { tile[at] = tz[l].at(F.sx, e_base + e); });
+  }
+  __syncthreads();
+  const int lead = blockDim.x - L * nb;  // staging threads before the chains, whole warps
+  if ((int)threadIdx.x >= lead) {
+    solve_line_chain<K>(c, a.chx, nb, a.h, a.win, tile, cs, faces, threadIdx.x - lead);
+  } else {
+    for (int b = 0; b < CHAIN_BARRIERS; ++b) __syncthreads();
+  }
+  __syncthreads();
+  walk_chains(count, n, nb, cs, [&](int e, int at, int) {
+    const long long g = e_base + e;
+    F.out[g] += ADV ? __ldg(F.mx + g) * tile[at] : tile[at];
+  });
+}
+
+// The chained x phase's shared memory for L lines of n points in nb chains.
+template <bool ADV>
+__host__ inline size_t xy_chain_bytes(int n, int nb, int L) {
+  return (ADV ? 0 : (size_t)L * sizeof(TzRow)) +
+         ((size_t)(n / nb) * line_chain_stride(L * nb) + (size_t)L * 2 * nb) * sizeof(float);
+}
+
+template <int K, bool ADV>
+__host__ inline void xy_chain_x(const XYArgs& a, unsigned blocks, int per_block, size_t smem,
+                                cudaStream_t s) {
+  const int chains = per_block * a.nb;
+  const int lead = chains < XY_CHAIN_STAGERS ? (XY_CHAIN_STAGERS - chains + 31) / 32 * 32 : 0;
+  xy_chain_x_kernel<K, ADV><<<dim3(blocks, a.nfam), lead + chains, smem, s>>>(a, per_block);
+}
+
+// Both phases of `a` on `stream`, the x phase in sub-block chains: K9's
+// unpaired z-RHS launch (ADV false) or K13's advection-only launch (ADV
+// true). `a.chx`, `a.nb` (a divisor of nx, at most XY_CHAIN_THREADS), `a.h`
+// and `a.win` describe the chain table of scheme 0 along x, which every
+// family uses. A block runs XY_CHAIN_THREADS / nb lines, fewer until they
+// fit 48 KB, at least one, in the device's opt-in maximum where one line
+// passes 48 KB, with at least XY_CHAIN_STAGERS threads. Anything else, and a line past that maximum, returns
+// cudaErrorInvalidValue before either phase runs.
+template <bool ADV>
+__host__ inline int xy_chain_launch(const XYArgs& a, void* stream) {
+  const int nx = a.cx[0].n, nb = a.nb, K = a.cx[0].K;
+  bool ok = xy_valid(a) && !a.paired && !a.weighted && xy_advection(a) == ADV && a.chx &&
+            nb >= 1 && nb <= XY_CHAIN_THREADS && nx % nb == 0 && a.win >= 1 &&
+            a.win <= 2 * nb && K >= 1 && K <= CFD_MAX_K;
+  for (int k = 0; ok && k < a.nfam; ++k) ok = a.fam[k].d2 == 0;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  int per_block = XY_CHAIN_THREADS / nb;
+  while (per_block > 1 && xy_chain_bytes<ADV>(nx, nb, per_block) > XY_X_SMEM) --per_block;
+  const size_t smem = xy_chain_bytes<ADV>(nx, nb, per_block);
+  if (smem > XY_X_SMEM) {
+    // per device: the dynamic shared memory these kernels have been opted
+    // in to (the device's per-block maximum), 0 until the first launch
+    // there that needs it
+    static int optin[DIST_MAX_DEVICES];
+    const void* kernels[] = {(const void*)xy_chain_x_kernel<1, ADV>,
+                             (const void*)xy_chain_x_kernel<2, ADV>,
+                             (const void*)xy_chain_x_kernel<3, ADV>};
+    int limit;
+    const cudaError_t err = dist_smem_limit(optin, kernels, 3, &limit);
+    if (err != cudaSuccess) return (int)err;
+    if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = xy_y_launch(a, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long lines = (long long)a.zt.nz * a.cy[0].n;
+  const unsigned blocks = (unsigned)((lines + per_block - 1) / per_block);
+  if (K == 1) {
+    xy_chain_x<1, ADV>(a, blocks, per_block, smem, s);
+  } else if (K == 2) {
+    xy_chain_x<2, ADV>(a, blocks, per_block, smem, s);
+  } else {
+    xy_chain_x<3, ADV>(a, blocks, per_block, smem, s);
   }
   return (int)cudaGetLastError();
 }

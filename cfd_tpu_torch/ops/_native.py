@@ -59,7 +59,7 @@ NVCC_FLAGS = (
 
 MAX_K, MAX_ROWS, MAX_TAPS = 3, 3, 8
 AHEAD = 8  # CFD_AHEAD: the rows a line's read-ahead holds (compact_common.cuh)
-X_BLOCK_BYTES = 48 * 1024  # what an x block of K3, K5-K10, K13 stages (pair.cu, xy_phase.cuh)
+X_BLOCK_BYTES = 48 * 1024  # what a one-thread-a-line x block stages (pair.cu, xy_phase.cuh)
 
 
 class Coef(ctypes.Structure):
@@ -161,7 +161,7 @@ def library() -> ctypes.CDLL:
     lib.cfd_gradient_pair.restype = i32
     lib.cfd_d2_sum.argtypes = [p] * 4 + [coef] * 2 + [i64, p]
     lib.cfd_d2_sum.restype = i32
-    lib.cfd_lap_rhs.argtypes = [p] * 6 + [coef] * 2 + [i32, i32, p]
+    lib.cfd_lap_rhs.argtypes = [p] * 6 + [coef] * 2 + [i32] * 5 + [p]
     lib.cfd_lap_rhs.restype = i32
     lib.cfd_curl_rhs.argtypes = [p] * 10 + [coef] * 2 + [i32, i32, p]
     lib.cfd_curl_rhs.restype = i32
@@ -171,7 +171,7 @@ def library() -> ctypes.CDLL:
     lib.cfd_lane_dist.restype = i32
     lib.cfd_strided_dist.argtypes = [p] * 6 + [coef, i64, i64, i32, i32, i32, p]
     lib.cfd_strided_dist.restype = i32
-    lib.cfd_adv_pair.argtypes = [p] * 6 + [coef] * 2 + [i32, p]
+    lib.cfd_adv_pair.argtypes = [p] * 6 + [coef] * 2 + [i32] * 4 + [p]
     lib.cfd_adv_pair.restype = i32
     lib.cfd_diag_copy.argtypes = [p, p] + [i64] * 7 + [p]
     lib.cfd_diag_copy.restype = i32
@@ -200,15 +200,18 @@ def check_order(scheme: CompactScheme) -> None:
 def x_lines_fit(nx: int, tiles: int = 1) -> bool:
     """Whether ``tiles`` staged x-lines of ``nx`` floats, each with its wrap
     slots (``cfd_line_ld``), fit the shared memory an x block stages: the
-    test ``xy_launch`` (``csrc/xy_phase.cuh``) and K7 make before they
-    launch. A paired launch (K3, K5) stages two tiles, every other one."""
+    test ``xy_launch`` (``csrc/xy_phase.cuh``: K3, K5, K6, K8, K10) and K7
+    make before they launch. A paired launch (K3, K5) stages two tiles,
+    every other one."""
     return tiles * 4 * ((nx + AHEAD + 1) | 1) <= X_BLOCK_BYTES
 
 
 def xy_planes_fit(scheme: CompactScheme, ny: int, nx: int) -> bool:
-    """Whether K7-K10 and K13 take (ny, nx) planes for ``scheme``: both
-    lines at least the scheme's ``min_points``, and one staged x-line within
-    an x block's shared memory (``x_lines_fit``)."""
+    """Whether ``"auto"`` routes (ny, nx) planes to K7-K10 and K13 for
+    ``scheme``: both lines at least the scheme's ``min_points``, and one
+    staged x-line within an x block's 48 KB (``x_lines_fit``), as the JAX
+    package's routing has it. K9 and K13's chained x phase also takes
+    longer lines."""
     return min(ny, nx) >= scheme.min_points() and x_lines_fit(nx)
 
 

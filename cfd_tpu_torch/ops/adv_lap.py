@@ -29,7 +29,9 @@ apply the dense operators.
 K3 and K5 stage two x-lines per line in their x phase (f and T_z f), so
 they take x-lines up to nx = 6134; ``adv_lap_fits`` and ``adv_lap3_fits``
 say where, as ``xy_launch`` tests it before it launches, and the fused
-substep (``ops/fused_step.py``) decides its head by them.
+substep (``ops/fused_step.py``) decides its head by them. K9's x phase
+runs K1's sub-block chains (``csrc/line_chains.cuh``) on the lines
+``lane.line_nb`` cuts and the chain table ``lane`` caches for K1.
 
 ``LAUNCHES``, ``LAUNCHES3`` and ``LAP_LAUNCHES`` count calls that launched
 K3, K5 and K9 (each kernel's two phases count once); nothing but the launch
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from ..schemes import CompactScheme, lhs_bands, rhs_matrix
-from . import _native
+from . import _native, lane
 from .dense import dense_apply, dense_derivative
 
 __all__ = [
@@ -269,13 +271,14 @@ def lap_rhs(f, dz, dy, dx, scheme: CompactScheme):
     dev = f.device
     bt, tt = device_z_tables(scheme, nz, float(dz), dev)
     cy, ty = _native.launch_tables(scheme, ny, float(dy), dev)
-    cx, tx = _native.launch_tables(scheme, nx, float(dx), dev)
+    nb = lane.line_nb(nx)
+    cx, chx, h, win = lane._chain_launch_tables(scheme, nx, nb, float(dx), dev)
     r = torch.empty_like(f)
     with torch.cuda.device(dev):
         err = _native.library().cfd_lap_rhs(
-            f.data_ptr(), r.data_ptr(), ty.data_ptr(), tx.data_ptr(), bt.data_ptr(),
+            f.data_ptr(), r.data_ptr(), ty.data_ptr(), chx.data_ptr(), bt.data_ptr(),
             tt.data_ptr(), ctypes.byref(cy), ctypes.byref(cx), nz, scheme.stencil_width,
-            torch.cuda.current_stream().cuda_stream,
+            nb, h, win, torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "lap_rhs")
     LAP_LAUNCHES += 1

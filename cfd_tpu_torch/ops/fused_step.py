@@ -18,8 +18,8 @@ device, in the JAX package's order:
 * head: ``merged_head`` (K3, ``adv_lap_rhs``) where its x phase takes the
   x-lines (``adv_lap.adv_lap_fits``: two staged lines, nx <= 6134); else
   ``stepwise_head`` (K13 ``advection_pair`` + K9 ``lap_rhs``) where both
-  take the shape (one staged line, nx <= 12278); else the substep returns
-  None and the model runs its generic form;
+  are routed there (one x-line within 48 KB, nx <= 12278); else the
+  substep returns None and the model runs its generic form;
 * tail: ``mega_tail`` (K4, ``rk3_mega``) where ``rk3_mega_supported``;
   else ``stepwise_tail``: K2 with ``mul`` and ``acc`` (``uz * fz + axy``),
   then K2's ``rk`` mode (``rk3_solve_update``). K4 stages nothing, so on

@@ -19,7 +19,8 @@ The port of ``cfd_tpu/ops/pallas_pair.py``:
   scheme (``_adv_pair_kernel``), the stepwise head of the fused RK3
   substep (``ops/fused_step.py``) where K3 does not fit. On a CUDA float32
   tensor it launches K13 (``csrc/adv_pair.cu``, an advection family of
-  ``csrc/xy_phase.cuh`` alone), whose x phase stages one x-line per line.
+  ``csrc/xy_phase.cuh`` alone), whose x phase runs K1's sub-block chains
+  (``csrc/line_chains.cuh``) on the lines ``lane.line_nb`` cuts.
 * ``pair_subtract``: the x and y components of ``u - grad(phi)`` in
   ``ops/poisson.project``'s compact form (``_pair_sub_kernel``). On a CUDA
   float32 tensor it launches K1 (``csrc/compact_lane.cu``) and K2
@@ -90,8 +91,10 @@ def d2_sum_supported(scheme: CompactScheme, ny: int, nx: int, dtype) -> bool:
 
 
 def adv_pair_supported(scheme: CompactScheme, ny: int, nx: int, dtype) -> bool:
-    """Whether K13 takes (..., ny, nx) fields of ``dtype`` for ``scheme``:
-    K7's conditions (one staged x-line, up to nx = 12278)."""
+    """Whether ``"auto"`` and the fused substep take K13 for (..., ny, nx)
+    fields of ``dtype`` and ``scheme``: K7's conditions (one staged x-line
+    within 48 KB, nx <= 12278), as the JAX package routes it; the kernel's
+    chained x phase also takes longer lines."""
     return pair_supported(scheme, ny, nx, dtype)
 
 
@@ -195,22 +198,27 @@ def advection_pair(f, ux, uy, dy, dx, scheme: CompactScheme):
     """``ux * df/dx + uy * df/dy`` of ``f`` (..., ny, nx) in one call.
 
     ``scheme`` is a first-derivative scheme, periodic or not. CUDA tensors
-    must be float32 and contiguous and run the kernel; an x-line past 48 KB
-    and a launch failure raise. CPU tensors take ``advection_pair_ref``.
+    must be float32 and contiguous and run the kernel; an x-line past one
+    block's opted-in shared memory and a launch failure raise. CPU tensors
+    take ``advection_pair_ref``.
     """
     global ADV_PAIR_LAUNCHES
     _check_adv(f, ux, uy, scheme)
     if f.device.type == "cpu":
         return advection_pair_ref(f, ux, uy, dy, dx, scheme)
     _native.check_operands("adv_pair", f, ux, uy)
-    cx, tx, cy, ty, planes = _xy_tables(f, dy, dx, scheme)
+    ny, nx = f.shape[-2:]
+    cy, ty = _native.launch_tables(scheme, ny, float(dy), f.device)
+    nb = lane.line_nb(nx)
+    cx, chx, h, win = lane._chain_launch_tables(scheme, nx, nb, float(dx), f.device)
+    planes = f.numel() // (ny * nx)
     out = torch.empty_like(f)
     if planes == 0:
         return out
     with torch.cuda.device(f.device):
         err = _native.library().cfd_adv_pair(
             f.data_ptr(), ux.data_ptr(), uy.data_ptr(), out.data_ptr(), ty.data_ptr(),
-            tx.data_ptr(), ctypes.byref(cy), ctypes.byref(cx), planes,
+            chx.data_ptr(), ctypes.byref(cy), ctypes.byref(cx), planes, nb, h, win,
             torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "adv_pair")

@@ -17,7 +17,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-__all__ = ["trace", "device_op_time_ms"]
+__all__ = ["trace", "device_op_time_ms", "kernel_ms_by_name"]
+
 
 def _activities():
     acts = [ProfilerActivity.CPU]
@@ -99,3 +100,26 @@ def device_op_time_ms(fn, x, *, iters: int = 10):
         return math.inf, math.inf, 0
     ops = [us for _, us in spans[1::2]]
     return min(ops) / 1e3, min(us for _, us in spans[0::2]) / 1e3, len(ops)
+
+
+def kernel_ms_by_name(fn, *, calls: int = 10) -> dict:
+    """Mean device milliseconds one ``fn()`` call spends in each kernel, by
+    the kernel's name, from the profiler's device timeline: the kernels'
+    own durations, no gaps and no host time. So a launch of two kernels
+    (the y and x phases of ``csrc/xy_phase.cuh``) is read phase by phase.
+    ``{}`` where the capture has no device activity: on the CPU, or when
+    the card's profiler returns an empty capture twice running."""
+    fn()  # warm up: builds, tables, allocator
+    for _ in range(2):
+        with profile(activities=_activities()) as prof:
+            for _ in range(calls):
+                fn()
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        out = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+                out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+        if out:
+            return out
+    return {}

@@ -47,7 +47,12 @@ script exits non-zero without printing the final line:
               lines of 512, 1024 and 8192 points and on lines of 257 and
               63 (one chain, the whole line) at ragged line counts, every
               scheme and filter but at 8192 (a d1, d2 and filter each
-              periodic and not), with and without its acc epilogue. Gate:
+              periodic and not), with and without its acc epilogue; K9
+              (the two periodic d2 schemes) at (64, 128, 8192), (5, 8,
+              8191) and (5, 8, 12278) and K13 (the four d1 schemes) at (3,
+              8, 8191) and (2, 8, 12278): their x phase in sub-block chains
+              on long lines, a prime one (one chain) and 14 chains of 877
+              rows (opted-in shared memory). Gate:
               max|err| <= 1e-5 * max|ref|, 5e-5 for second derivatives
               with closure rows; K11/K12 at the JAX dist kernels' gates (2e-6; 2e-5 d2
               with closures; 5e-6 periodic filters, 1e-4 filters with
@@ -133,9 +138,11 @@ script exits non-zero without printing the final line:
               turns with the single-device fused step. Shards that share one
               card measure the distributed algorithm's overhead, not its
               scaling. At (64, 128, 8192) (and 256^3 for the kernels): K13
-              and K2 rk with their plain versions and their unfused
-              compositions, the stepwise tail against K4, and each model's
-              step in turns with its generic step.
+              and K9 with their plain versions, queued (device time alone),
+              beside their bounds; K13 and K2 rk with their unfused
+              compositions, K2 rk with its plain version, the stepwise tail
+              against K4, and each model's step in turns with its generic
+              step.
 8. diag     — the benchmark harness's kernels against their plain versions
               at 256^3: K14 (diag_copy: copy2d over (1024, 256) tiles of
               (65536, 256) and (256, C) tiles of the (256, 65536) dfdz
@@ -159,6 +166,9 @@ script exits non-zero without printing the final line:
               (2, 2, 2) at 256^3, diag_axes, diag_rk3 and diag_ns at 128^3.
               A failed gate or an error row fails the run; so does a script
               that launched none of its path's kernels.
+10. phase_split — the durations of K13's and K9's y and x phase kernels
+              at (64, 128, 8192) and 256^3, by torch.profiler (after the
+              scripts, which read profiler captures themselves).
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -200,6 +210,7 @@ from cfd_tpu_torch.parallel.fused import make_gradient_distributed
 from cfd_tpu_torch.benchmarks import diag_dfdz as bench_dfdz
 from cfd_tpu_torch.benchmarks.diag_dfdz import BF16_F64_GATE, BF16_GATE, DOTS_GATE
 from cfd_tpu_torch.utils import cuda_time_ms
+from cfd_tpu_torch.utils.profiling import kernel_ms_by_name
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W). The
 # bound of a kernel is the larger of its least bytes over HBM and its
 # operations over the peak for their type.
@@ -675,6 +686,7 @@ def phase_kernels(dev) -> dict:
     _slice5_cases(stats, failures, g, dev)
     _slice6_cases(stats, failures, g, dev)
     _chain_cases(stats, failures, g, dev)
+    _xy_chain_cases(stats, failures, g, dev)
     if failures:
         raise AssertionError("kernel vs plain over the gate: " + "; ".join(failures))
     return stats
@@ -1134,6 +1146,39 @@ def _slice6_cases(stats, failures, g, dev):
         del r, adv, fin, q, d64
 
 
+# K9's and K13's chained x phase (csrc/xy_phase.cuh xy_chain_launch) on the
+# lines that phase 3 holds nowhere else: K9 at LONG (128 chains of 64 rows;
+# 256^3 and RAGGED are in _slice4_cases, K13 at all three in
+# _slice6_cases), and both on a prime line (8191: one chain, one line a
+# block) and on 12278 points (14 chains of 877 rows: one line a block in
+# opted-in shared memory). K9 takes nz >= 5 and ny >= 5 for its sixth-order
+# scheme, K13 ny >= 6 for SCHEME6.
+XY_CHAIN_SHAPES = {"lap_rhs": (LONG, (5, 8, 8191), (5, 8, 12278)),
+                   "adv_pair": ((3, 8, 8191), (2, 8, 12278))}
+
+
+def _xy_chain_cases(stats, failures, g, dev):
+    """K9 (both periodic d2 schemes) and K13 (the four d1 schemes) against
+    their plain float64 versions on XY_CHAIN_SHAPES."""
+    for kernel, shapes in XY_CHAIN_SHAPES.items():
+        for shape in shapes:
+            dz, dy, dx = _spacing(shape)
+            f, ux, uy = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+            f64, ux64, uy64 = f.double(), ux.double(), uy.double()
+            label = lambda scheme: (f"chains nb={lane.line_nb(shape[-1])} {scheme.name} "
+                                    f"{tuple(shape)}")
+            if kernel == "lap_rhs":
+                for scheme in (s for s in D2_SCHEMES if s.periodic):
+                    _compare(stats, kernel, label(scheme), adv_lap.lap_rhs(f, dz, dy, dx, scheme),
+                             adv_lap.lap_rhs_ref(f64, dz, dy, dx, scheme), failures)
+            else:
+                for scheme in D1_SCHEMES:
+                    _compare(stats, kernel, label(scheme),
+                             pair.advection_pair(f, ux, uy, dy, dx, scheme),
+                             pair.advection_pair_ref(f64, ux64, uy64, dy, dx, scheme), failures)
+            del f, ux, uy, f64, ux64, uy64
+
+
 def _substep_state(dev, shape, dtype):
     """(f, u, spacing) of the advection–diffusion slices at ``shape``."""
     if tuple(shape) == LONG:
@@ -1290,11 +1335,14 @@ def phase_long_slice(dev, name) -> dict:
 
 
 def _long_times(dev, smi) -> dict:
-    """CUDA-event medians at LONG f32 (and K13, K2 rk at 256^3), in turns:
-    K13 and K2 rk with their plain versions and their unfused compositions
+    """CUDA-event medians at LONG f32 (and K13, K9, K2 rk at 256^3), in
+    turns: K13 and K9 with their plain versions, queued (device time
+    alone), beside their bounds (their y and x phases: phase_split); K13
+    and K2 rk with their unfused compositions
     (row 16: K7, two multiplies and an add; row 7: K2 solve_only and the
-    elementwise update), the stepwise tail against K4, and each model's step
-    against its generic step at the same shape."""
+    elementwise update), K2 rk with its plain version, the stepwise tail
+    against K4, and each model's step against its generic step at the same
+    shape."""
     g = torch.Generator(device=dev).manual_seed(20261020)
     s1, s2 = FUSED_PAIRS[0]
     times = {}
@@ -1302,14 +1350,23 @@ def _long_times(dev, smi) -> dict:
         dz, dy, dx = _spacing(shape)
         key = "x".join(map(str, shape))
         f, ux, uy, uz, r, q = (torch.randn(shape, generator=g, device=dev) for _ in range(6))
+        # K13 and K9, device time alone, beside their bounds
+        k13 = lambda: pair.advection_pair(f, ux, uy, dy, dx, s1)
+        k9 = lambda: adv_lap.lap_rhs(f, dz, dy, dx, s2)
         times[f"adv_pair_{key}"] = _turns(lambda: pair.advection_pair_ref(f, ux, uy, dy, dx, s1),
-                                          lambda: pair.advection_pair(f, ux, uy, dy, dx, s1))
+                                          k13, queued=True)
+        times[f"lap_rhs_{key}"] = _turns(lambda: adv_lap.lap_rhs_ref(f, dz, dy, dx, s2), k9,
+                                         queued=True)
+        for name in ("adv_pair", "lap_rhs"):
+            t = times[f"{name}_{key}"]
+            t["bound_ms"] = BYTES_PER_POINT[name] * f.numel() / HBM_BYTES_PER_S * 1e3
+            t["nb"] = lane.line_nb(shape[-1])
 
         def k7_unfused():
             fx, fy = pair.gradient_pair(f, dy, dx, s1)
             return ux * fx + uy * fy
 
-        t = _turns(k7_unfused, lambda: pair.advection_pair(f, ux, uy, dy, dx, s1))
+        t = _turns(k7_unfused, k13)
         times[f"adv_pair_{key}"]["unfused_ms"] = t["plain_ms"]
         times[f"adv_pair_{key}"]["unfused_readings_ms"] = [t["kernel_readings_ms"],
                                                            t["plain_readings_ms"]]
@@ -1334,7 +1391,6 @@ def _long_times(dev, smi) -> dict:
             times["stepwise_tail_vs_k4_long"] = {
                 "stepwise_tail_ms": t["kernel_ms"], "k4_ms": t["plain_ms"],
                 "readings_ms": [t["kernel_readings_ms"], t["plain_readings_ms"]]}
-            times["lap_rhs_long_ms"] = cuda_time_ms(lambda: adv_lap.lap_rhs(f, dz, dy, dx, s2))
             times["dfdx_long_ms"] = cuda_time_ms(lambda: ct.dfdx(f, dx, s1))
             out = torch.empty_like(f)
             times["copy_long_ms"] = cuda_time_ms(lambda: out.copy_(f))
@@ -1356,6 +1412,27 @@ def _long_times(dev, smi) -> dict:
     emit({"phase": "long_times", "device": smi, "shape": list(LONG), "dtype": "float32",
           "schemes": [s1.name, s2.name], **times, "steps": steps})
     return times
+
+
+def phase_split(dev, smi) -> dict:
+    """The durations of K13's and K9's y and x phase kernels, at LONG and
+    256^3 f32, by torch.profiler (``kernel_ms_by_name``): the two kernels
+    of one call apart. Run last, after the benchmark scripts, whose
+    timelines are read from profiler captures too."""
+    g = torch.Generator(device=dev).manual_seed(20261021)
+    s1, s2 = FUSED_PAIRS[0]
+    phases = {}
+    for shape in (LONG, (N, N, N)):
+        dz, dy, dx = _spacing(shape)
+        key = "x".join(map(str, shape))
+        f, ux, uy = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        phases[f"adv_pair_{key}"] = kernel_ms_by_name(
+            lambda: pair.advection_pair(f, ux, uy, dy, dx, s1))
+        phases[f"lap_rhs_{key}"] = kernel_ms_by_name(lambda: adv_lap.lap_rhs(f, dz, dy, dx, s2))
+        del f, ux, uy
+    emit({"phase": "phase_split", "device": smi, "dtype": "float32", "phases_ms": phases,
+          "note": "mean device ms a call spends in each kernel, by kernel name"})
+    return phases
 
 
 # ---------------------------------------------------------------------------
@@ -2318,6 +2395,15 @@ def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
             "timed": [f"{name} {next(v for k, v in DIAG_TIMED.items() if name.startswith(k))} "
                       "f32, queued"],
         })
+    # K9 at LONG (its launches on the long-x paths) and 256^3, and K13 at
+    # both, queued, with their phases (the chained x phase and the y phase)
+    for name in ("lap_rhs", "adv_pair"):
+        row = next(r for r in rows if r["name"] == name)
+        row["queued"] = {
+            "x".join(map(str, shape)): {k: long_times[f"{name}_{'x'.join(map(str, shape))}"][k]
+                                        for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                                  "phases_ms", "nb")}
+            for shape in (LONG, (N, N, N))}
     # row 2: K1 on lines of 512 and 8192 points, queued
     lane_row = next(r for r in rows if r["name"] == "compact_lane")
     lane_row["long_lines"] = {
@@ -2347,6 +2433,8 @@ def main() -> None:
     long_times = _long_times(dev, smi)
     diag_out = phase_diag(dev, smi)
     launches.update(phase_bench_scripts(dev))
+    for key, phases in phase_split(dev, smi).items():
+        long_times[key]["phases_ms"] = phases
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     emit({"kernels": _summary(stats, launches, times, dist_times, long_times, diag_out)})

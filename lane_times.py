@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of K1 (``compact_lane``) on one card, queued.
+"""Device time of the kernels that solve whole x-lines in sub-block chains,
+on one card, queued: K1 (``compact_lane``), and K9 (``lap_rhs``) and K13
+(``advection_pair``), whose x phase runs the same chains.
 
 Times the checkout in the working directory, so that two checkouts can be
 held against each other in one run on one card:
@@ -7,43 +9,60 @@ held against each other in one run on one card:
     python3 lane_times.py                          # this checkout
     (cd ../other && python3 ../repo/lane_times.py)  # another one
 
-Cases, float32, ``lane_derivative`` (the x derivative that ``dfdx`` and
-``filter_field`` launch): on cubes of 64, 128 and 256 points a d1
+Cases, float32. K1, ``lane_derivative`` (the x derivative that ``dfdx``
+and ``filter_field`` launch): on cubes of 64, 128 and 256 points a d1
 (SCHEME4_PERIODIC), a d2 (SCHEME4_D2_PERIODIC) and the sixth-order
 periodic filter (row 1 of PERF.md's kernel table); SCHEME4_PERIODIC at
-(64, 64, 512), (32768, 512) and (64, 128, 8192) (row 2); and, on lines
-that no divisor cuts into chains of 32 rows, (256, 256, 257) and (512,
-512, 63), SCHEME4_PERIODIC, SCHEME4 and the periodic filter. Each is timed
-with CUDA events around calls all issued behind a spin kernel
-(``cuda_time_ms(..., queued=True)``: the kernel plus its launch, no host
-time), beside its library call (one ``torch.matmul`` with the dense
-float32 operator, queued too) and its byte bound (one read and one write
-of each point at 3.35 TB/s). Prints the card's name and power limit, then
-one JSON line; exits non-zero without a card.
+(64, 64, 512), (32768, 512), (64, 128, 8192) and on the prime line (64,
+128, 8191) (row 2); and, on lines that no divisor cuts into chains of 32
+rows, (256, 256, 257) and (512, 512, 63), SCHEME4_PERIODIC, SCHEME4 and
+the periodic filter. Each is beside its library call (one
+``torch.matmul`` with the dense float32 operator, queued too) and its
+byte bound (one read and one write of each point at 3.35 TB/s). K9 (SCHEME4_D2_PERIODIC) and K13 (SCHEME4_PERIODIC),
+as the long-x stepwise substep calls them (rows 17 and 16): at (64, 128,
+8192), 256^3, on a prime line (64, 128, 8191) and on (42, 128, 12278)
+(14 chains of 877 rows), each beside its byte bound (K9 one read and one
+write a point, K13 three reads and one write) and the durations of its y
+and x phase kernels from torch.profiler (no library call computes either).
+Every time is taken with CUDA events around calls all issued behind a spin
+kernel (``cuda_time_ms(..., queued=True)``: the kernel plus its launch, no
+host time). Prints the card's name and power limit, then one JSON line;
+exits non-zero without a card.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import subprocess
 import sys
+from pathlib import Path
 
 import torch
 
 sys.path.insert(0, ".")  # the checkout being timed, not this script's
 
 import cfd_tpu_torch as ct  # noqa: E402
-from cfd_tpu_torch.ops import dense, lane  # noqa: E402
+from cfd_tpu_torch.ops import adv_lap, dense, lane, pair  # noqa: E402
 from cfd_tpu_torch.utils.timing import HBM_BYTES_PER_S, cuda_time_ms  # noqa: E402
+
+# the profiler helper of this script's own checkout (the timed one may
+# predate it); it imports nothing of the package
+_spec = importlib.util.spec_from_file_location(
+    "_profiling", Path(__file__).resolve().parent / "cfd_tpu_torch" / "utils" / "profiling.py")
+_profiling = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_profiling)
 
 FILTER = ct.get_filter(6, 0.45, periodic=True)
 CASES = (  # (shape, schemes)
     *(((n, n, n), (ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC, FILTER)) for n in (64, 128, 256)),
-    *((shape, (ct.SCHEME4_PERIODIC,)) for shape in ((64, 64, 512), (32768, 512), (64, 128, 8192))),
+    *((shape, (ct.SCHEME4_PERIODIC,)) for shape in ((64, 64, 512), (32768, 512), (64, 128, 8192),
+                                                     (64, 128, 8191))),
     *((shape, (ct.SCHEME4_PERIODIC, ct.SCHEME4, FILTER)) for shape in ((256, 256, 257),
                                                                      (512, 512, 63))),
 )
+XY_SHAPES = ((64, 128, 8192), (256, 256, 256), (64, 128, 8191), (42, 128, 12278))
 
 
 def main() -> None:
@@ -69,6 +88,20 @@ def main() -> None:
                 "bound_ms": 8 * f.numel() / HBM_BYTES_PER_S * 1e3,
             }
             del M
+    s1, s2 = ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC
+    for shape in XY_SHAPES:
+        f, ux, uy = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        d = 2 * math.pi / 128
+        key = "x".join(map(str, shape))
+        for name, fn, nbytes in (
+                ("lap_rhs", lambda: adv_lap.lap_rhs(f, d, d, d, s2), 8),
+                ("adv_pair", lambda: pair.advection_pair(f, ux, uy, d, d, s1), 16)):
+            res[f"{name} {key}"] = {
+                "kernel_ms": cuda_time_ms(fn, queued=True),
+                "bound_ms": nbytes * f.numel() / HBM_BYTES_PER_S * 1e3,
+                "phases_ms": _profiling.kernel_ms_by_name(fn),
+            }
+        del f, ux, uy
     print(json.dumps(res), flush=True)
 
 

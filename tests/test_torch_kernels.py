@@ -653,9 +653,56 @@ def test_advection_pair_kernel_matches_plain(cuda, scheme, shape):
 
 @pytest.mark.gpu
 def test_advection_pair_kernel_rejects_lines_past_its_shared_memory(cuda):
-    f = torch.zeros((2, 8, 12279), device=cuda)
+    """The chained x phase holds a line in one block, in the card's
+    opted-in shared memory: a prime line (one chain) of 65537 points (262
+    KB) passes it, in K13 and in K9."""
+    f = torch.zeros((5, 8, 65537), device=cuda)
     with pytest.raises(RuntimeError, match="adv_pair launch failed"):
         pair.advection_pair(f, f, f, 0.1, 0.1, ct.SCHEME4_PERIODIC)
+    with pytest.raises(RuntimeError, match="lap_rhs launch failed"):
+        adv_lap.lap_rhs(f, 0.1, 0.1, 0.1, ct.SCHEME4_D2_PERIODIC)
+
+
+# K9 and K13 with their x phase in sub-block chains (csrc/xy_phase.cuh
+# xy_chain_launch): x-lines of 8192 (128 chains of 64 rows), 512, 256, 257
+# (one chain), 12278 (14 chains of 877 rows, one line a block in opted-in
+# shared memory) and 8191 (prime: one chain), and the long-x path's (64,
+# 128, 8192) and 256^3; K9 takes nz >= 5 and ny >= 5 for its sixth-order
+# scheme, K13 ny >= 6 for SCHEME6
+XY_CHAIN_LINES = [(8, 8192), (16, 512), (8, 256), (8, 257), (8, 12278), (8, 8191)]
+XY_CHAIN_K9 = [(5, *s) for s in XY_CHAIN_LINES] + [(64, 128, 8192), (256, 256, 256)]
+XY_CHAIN_K13 = [(3, *s) for s in XY_CHAIN_LINES] + [(64, 128, 8192), (256, 256, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", XY_CHAIN_K9,
+                         ids=[f"{s}-nb{lane.line_nb(s[-1])}" for s in XY_CHAIN_K9])
+@pytest.mark.parametrize("scheme", [ct.SCHEME4_D2_PERIODIC, ct.SCHEME6_D2_PERIODIC],
+                         ids=["pade4_d2", "lele6_d2"])
+def test_lap_rhs_chained_x_phase_matches_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(21)
+    f = torch.randn(shape, generator=g).to(cuda)
+    spacing = (0.04, 0.03, 0.02)
+    before = adv_lap.LAP_LAUNCHES
+    got = adv_lap.lap_rhs(f, *spacing, scheme)
+    torch.cuda.synchronize()
+    assert adv_lap.LAP_LAUNCHES == before + 1
+    assert _rel_err(got, adv_lap.lap_rhs_ref(f.double(), *spacing, scheme)) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", XY_CHAIN_K13,
+                         ids=[f"{s}-nb{lane.line_nb(s[-1])}" for s in XY_CHAIN_K13])
+@pytest.mark.parametrize("scheme", D1_SCHEMES, ids=[s.name for s in D1_SCHEMES])
+def test_advection_pair_chained_x_phase_matches_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(22)
+    f, ux, uy = (torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    before = pair.ADV_PAIR_LAUNCHES
+    got = pair.advection_pair(f, ux, uy, 0.05, 0.04, scheme)
+    torch.cuda.synchronize()
+    assert pair.ADV_PAIR_LAUNCHES == before + 1
+    ref = pair.advection_pair_ref(f.double(), ux.double(), uy.double(), 0.05, 0.04, scheme)
+    assert _rel_err(got, ref) <= F32_GATE
 
 
 @pytest.mark.gpu

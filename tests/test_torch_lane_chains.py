@@ -44,7 +44,7 @@ from cfd_tpu_torch.schemes import lhs_bands
 SCHEMES = {
     "SCHEME4": ct.SCHEME4, "SCHEME4_PERIODIC": ct.SCHEME4_PERIODIC, "SCHEME6": ct.SCHEME6,
     "SCHEME6_PERIODIC": ct.SCHEME6_PERIODIC, "SCHEME4_D2": ct.SCHEME4_D2,
-    "SCHEME4_D2_PERIODIC": ct.SCHEME4_D2_PERIODIC,
+    "SCHEME4_D2_PERIODIC": ct.SCHEME4_D2_PERIODIC, "SCHEME6_D2_PERIODIC": ct.SCHEME6_D2_PERIODIC,
     "filter6": ct.get_filter(6, 0.45, periodic=False),
     "filter6_periodic": ct.get_filter(6, 0.45, periodic=True),
 }
@@ -102,7 +102,9 @@ def _rhs(f, scheme, dtype):
 
 def _chains(f, scheme, dtype):
     """numpy transcription of K1's chained form on lines (L, n), in
-    ``dtype``: ``solve_line_chain`` for every chain of every line."""
+    ``dtype``: ``solve_line_chain`` for every chain of every line, the
+    chains of all lines side by side (each with its own kind's rows), each
+    in the kernel's order of operations."""
     n = f.shape[-1]
     nb = lane.line_nb(n)
     bz = n // nb
@@ -112,41 +114,37 @@ def _chains(f, scheme, dtype):
     bwd = table[: 4 * rows].reshape(3, bz + 2, 4)
     fwd = table[4 * rows : 6 * rows].reshape(3, bz + 2, 2)
     assert not bwd[:, [0, -1]].any() and not fwd[:, [0, -1]].any()
-    bwd, fwd = bwd[:, 1:-1], fwd[:, 1:-1]
     red = table[6 * rows :].reshape(2, win, nb)
-    r = _rhs(f, scheme, dtype)
-    kind = lambda k: 0 if k == 0 else (2 if k == nb - 1 else 1)
+    kinds = [0 if k == 0 else (2 if k == nb - 1 else 1) for k in range(nb)]
+    bwd, fwd = bwd[kinds, 1:-1], fwd[kinds, 1:-1]  # (nb, bz, 4), (nb, bz, 2)
+    r = _rhs(f, scheme, dtype).reshape(-1, nb, bz)
     m = 2 * nb
     zs = np.empty_like(r)
-    faces = np.empty((f.shape[0], m), dtype)
-    for k in range(nb):  # forward sweeps and faces
-        q = kind(k)
-        z = np.zeros(f.shape[0], dtype)
-        ff = np.zeros(f.shape[0], dtype)
-        for i in range(bz):
-            g = k * bz + i
-            z = r[:, g] - fwd[q, i, 0] * z
-            ff = ff + fwd[q, i, 1] * r[:, g]
-            zs[:, g] = z
-        faces[:, 2 * k] = -ff
-        faces[:, 2 * k + 1] = -(z * bwd[q, bz - 1, 0])
-    out = np.empty_like(r)
-    for k in range(nb):  # the windowed reduced dots and the backward sweeps
-        q = kind(k)
-        c0 = (2 * k - h) % m if scheme.periodic else min(max(2 * k - h, 0), m - win)
-        alpha = np.zeros(f.shape[0], dtype)
-        beta = np.zeros(f.shape[0], dtype)
-        for j in range(win):
-            fj = faces[:, (c0 + j) % m]
-            alpha = alpha + red[0, j, k] * fj
-            beta = beta + red[1, j, k] * fj
-        e = (k + 1) * bz - 1
-        x = zs[:, e] * bwd[q, bz - 1, 0]
-        for i in range(bz - 1, -1, -1):
-            if i < bz - 1:
-                x = (zs[:, k * bz + i] - bwd[q, i, 1] * x) * bwd[q, i, 0]
-            out[:, k * bz + i] = x + alpha * bwd[q, i, 2] + beta * bwd[q, i, 3]
-    return out
+    z = np.zeros(r.shape[:2], dtype)
+    ff = np.zeros(r.shape[:2], dtype)
+    for i in range(bz):  # forward sweeps and faces
+        z = r[:, :, i] - fwd[:, i, 0] * z
+        ff = ff + fwd[:, i, 1] * r[:, :, i]
+        zs[:, :, i] = z
+    faces = np.empty((r.shape[0], m), dtype)
+    faces[:, 0::2] = -ff
+    faces[:, 1::2] = -(z * bwd[:, bz - 1, 0])
+    # each chain's window of reduced weights dotted with the line's faces
+    k = np.arange(nb)
+    c0 = (2 * k - h) % m if scheme.periodic else np.clip(2 * k - h, 0, m - win)
+    alpha = np.zeros(r.shape[:2], dtype)
+    beta = np.zeros(r.shape[:2], dtype)
+    for j in range(win):
+        fj = faces[:, (c0 + j) % m]
+        alpha = alpha + red[0, j] * fj
+        beta = beta + red[1, j] * fj
+    out = np.empty_like(r)  # the backward sweeps with the intra update
+    x = zs[:, :, bz - 1] * bwd[:, bz - 1, 0]
+    for i in range(bz - 1, -1, -1):
+        if i < bz - 1:
+            x = (zs[:, :, i] - bwd[:, i, 1] * x) * bwd[:, i, 0]
+        out[:, :, i] = x + alpha * bwd[:, i, 2] + beta * bwd[:, i, 3]
+    return out.reshape(f.shape)
 
 
 def _exact(f, scheme):
