@@ -46,9 +46,6 @@ extern "C" int cfd_adv_pair(const float* f, const float* ux, const float* uy, fl
   XYArgs a = xy_args(taby, taby, nullptr, nullptr, cy, cy, cx, cx, nullptr, nullptr, planes, 0);
   a.fam[0] = {f, f, uy, ux, nullptr, out, 0, 0};
   a.nfam = 1;
-  a.chx = chx;
-  a.nb = nb;
-  a.h = h;
-  a.win = win;
-  return xy_chain_launch<true>(a, stream);
+  xy_chain_table(a, 0, chx, nb, h, win);
+  return xy_chain_launch<XY_ADV>(a, stream);
 }

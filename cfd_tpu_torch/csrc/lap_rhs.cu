@@ -27,7 +27,7 @@
 // rows at nx = 8192, 8 of 32 at 256; one chain, the whole line, where no
 // divisor leaves 32 rows), one thread a chain, and the block adds D2x h
 // into r, coalesced. Where one thread walked a whole staged line (the form
-// K6 keeps), a block at nx = 8192 had one busy thread.
+// this replaced), a block at nx = 8192 had one busy thread.
 
 #include "xy_phase.cuh"
 
@@ -41,9 +41,6 @@ extern "C" int cfd_lap_rhs(const float* f, float* r, const float* tab2y, const f
   XYArgs a = xy_args(tab2y, tab2y, nullptr, nullptr, c2y, c2y, c2x, c2x, bt, tt, nz, W);
   a.fam[0] = {f, f, nullptr, nullptr, f, r, 0, 1};
   a.nfam = 1;
-  a.chx = chx;
-  a.nb = nb;
-  a.h = h;
-  a.win = win;
-  return xy_chain_launch<false>(a, stream);
+  xy_chain_table(a, 0, chx, nb, h, win);
+  return xy_chain_launch<XY_RHS>(a, stream);
 }

@@ -27,10 +27,11 @@
 //
 // A launch is of the first two kinds (`weighted` = 0), weighted throughout,
 // or, unpaired, advection throughout. The weighted kind has an x kernel of
-// its own, so K3, K5 and K6 compile to the same code as before it existed.
-// The unpaired z-RHS launch of K9 and the advection-only launch of K13 run
-// the chained x phase (below), which takes any line an opted-in block
-// holds; a paired launch's two staged lines take nx <= 6134.
+// its own. The z-RHS launches of K6 and K9, the advection-only launch of
+// K13 and the paired launch of K5 run the chained x phase (below), which
+// takes any line an opted-in block holds; only K3's paired launch (two
+// staged lines, nx <= 6134) and the weighted launches of K8 and K10 still
+// run an x phase of one thread a line.
 //
 // A 256^2 plane (256 KB) does not fit one block's 227 KB of shared memory,
 // so a launch is two kernels on one stream:
@@ -41,21 +42,22 @@
 //    it reads. The forward sweep keeps its values in `out`, and the
 //    backward sweep stores my * Dy sy, or Dy (T_z sy) + B_z bz, there.
 // 2. x phase, in one of two forms:
-//    - one thread a line (K3, K5, K6, K8, K10: `xy_launch`): a block stages
-//      consecutive x-lines of a z-RHS family's T_z sx (formed from three
-//      planes) and, where an advection family over the same field comes
-//      with it, of sx itself, in shared memory with coalesced loads, from
-//      one read of sx; a warp per family solves them in place, one thread
-//      a line; the block adds them, times mx for advection, into the
-//      outputs, coalesced. At nx = 8192 that is one busy thread a block.
-//    - sub-block chains (K9, K13: `xy_chain_launch`, with the chain table
-//      of ops/lane.py `chain_table` in XYArgs, `nb` > 0): as K1 does
-//      (compact_lane.cu, line_chains.cuh), a block stages L lines of T_z sx
-//      (K9, formed from three planes with each line's TzRow, made once a
-//      line) or of sx (K13, with cp.async) into the chain layout, cuts each
-//      line into nb sub-blocks of >= 32 rows (ops/lane.py `line_nb`) and
-//      runs their Thomas chains one a thread, L nb threads a block; then
-//      adds them, times mx for advection, into the output, coalesced.
+//    - one thread a line (K3; K8 and K10 weighted: `xy_launch`): a block
+//      stages consecutive x-lines of a z-RHS family's T_z sx (formed from
+//      three planes) and of the advection family's sx over the same field,
+//      in shared memory with coalesced loads, from one read of sx; a warp
+//      per family solves them in place, one thread a line; the block adds
+//      them, times mx for advection, into the outputs, coalesced. At nx =
+//      8192 that would be one busy thread a block.
+//    - sub-block chains (K6, K9, K13 and K5: `xy_chain_launch`, with the
+//      chain tables of ops/lane.py `chain_table` in XYArgs, `nb` > 0): as
+//      K1 does (compact_lane.cu, line_chains.cuh), a block stages L lines
+//      of T_z sx (K6, K9, formed from three planes with each line's TzRow,
+//      made once a line), of sx (K13, with cp.async), or of both from one
+//      read of sx (K5's pairs) into the chain layout, cuts each line into
+//      nb sub-blocks of >= 32 rows (ops/lane.py `line_nb`) and runs their
+//      Thomas chains one a thread, L nb threads a block a family; then adds
+//      them, times mx for advection, into the outputs, coalesced.
 //
 // Families (x: pairs of them) sit on the grid's y axis, so the branch on a
 // family's kind is uniform in a block, and each kind's body is compiled
@@ -78,8 +80,8 @@
 //
 // Everything here is in an anonymous namespace: each source that includes
 // it gets its own copy of the kernels. The chained x phase is a template
-// of its launch (`xy_chain_launch<ADV>`), so only the two sources that call
-// it build its kernels.
+// of its kind (`xy_chain_launch<KIND>`), so each source that calls it
+// builds the kernels of its own kind, and the sources that do not, none.
 #pragma once
 
 #include "line_chains.cuh"
@@ -126,11 +128,13 @@ struct XYArgs {
   int weighted;                  // 1: every family is weighted (paired = 0)
   int xfam[XY_MAX_FAMILIES];     // weighted: the families with an x term
   int nxfam;                     //   (set by xy_launch)
-  // the chained x phase (xy_chain_launch): the chain table of scheme 0
-  // along x (ops/lane.py `chain_table`), its nb sub-blocks a line and its
-  // reduced rows' window (h, win); nb = 0 for the one-thread-a-line form
-  const float* chx;
-  int nb, h, win;
+  // the chained x phase (xy_chain_launch, xy_chain_table): the chain table
+  // of each scheme along x (ops/lane.py `chain_table`) and its reduced
+  // rows' window (h, win), for the nb sub-blocks of a line, which the line
+  // length alone sets; nb = 0 for the one-thread-a-line forms
+  const float* chx[2];
+  int h[2], win[2];
+  int nb;
 };
 
 __device__ __forceinline__ long long wrap_plane(long long p, int d, int nz) {
@@ -229,16 +233,15 @@ __global__ void __launch_bounds__(XY_Y_THREADS, 8) xy_y_kernel(const __grid_cons
   }
 }
 
-// The x phase. A block stages consecutive x-lines of one group's field:
-// T_z sx for its z-RHS family and, when the families come in pairs (an
-// advection family 2g, then a z-RHS family 2g + 1 over the same sx), sx
-// itself for the advection family, both from one read of sx. Warp 0 solves
-// the z-RHS lines, warp 1 the advection lines, in place.
-template <bool PAIRED>
+// The paired one-thread-a-line x phase (K3). A block stages consecutive
+// x-lines of one pair's field, an advection family 2g and a z-RHS family
+// 2g + 1 over the same sx: T_z sx for the z-RHS family and sx itself for
+// the advection family, both from one read of sx. Warp 0 solves the z-RHS
+// lines, warp 1 the advection lines, in place.
 __global__ void xy_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
   extern __shared__ float tile[];
-  const XYFamily& R = a.fam[PAIRED ? 2 * blockIdx.y + 1 : blockIdx.y];
-  const XYFamily& A = a.fam[PAIRED ? 2 * blockIdx.y : blockIdx.y];  // read only when PAIRED
+  const XYFamily& R = a.fam[2 * blockIdx.y + 1];
+  const XYFamily& A = a.fam[2 * blockIdx.y];
   const int n = a.cx[0].n;
   const int ld = cfd_line_ld(n);
   const long long lines = (long long)a.zt.nz * a.cy[0].n;
@@ -249,26 +252,18 @@ __global__ void xy_x_kernel(const __grid_constant__ XYArgs a, int lines_per_bloc
   const int count = nl * n;
   const long long e_base = line0 * n;
   float* tr = tile;                            // T_z sx lines, then their Dx
-  float* ta = tile + lines_per_block * ld;     // sx lines, then their Dx (PAIRED)
+  float* ta = tile + lines_per_block * ld;     // sx lines, then their Dx
 
-  if (PAIRED) {
-    float* const tiles[2] = {tr, ta};
-    stage_lines(tiles, count, n, [&](int e, float* v) {
-      const long long g = e_base + e;
-      v[1] = __ldg(R.sx + g);
-      v[0] = TzRow(a.zt, g / plane, plane).at(R.sx, g, v[1]);
-    });
-  } else {
-    float* const tiles[1] = {tr};
-    stage_lines(tiles, count, n, [&](int e, float* v) {
-      const long long g = e_base + e;
-      v[0] = TzRow(a.zt, g / plane, plane).at(R.sx, g, __ldg(R.sx + g));
-    });
-  }
+  float* const tiles[2] = {tr, ta};
+  stage_lines(tiles, count, n, [&](int e, float* v) {
+    const long long g = e_base + e;
+    v[1] = __ldg(R.sx + g);
+    v[0] = TzRow(a.zt, g / plane, plane).at(R.sx, g, v[1]);
+  });
   __syncthreads();
 
   const int t = threadIdx.x;
-  if (t < nl || (PAIRED && t >= 32 && t - 32 < nl)) {
+  if (t < nl || (t >= 32 && t - 32 < nl)) {
     const bool adv = t >= 32;  // warp 1: no divergence in a warp
     const XYFamily& F = adv ? A : R;
     float* line = (adv ? ta : tr) + (adv ? t - 32 : t) * ld;
@@ -282,7 +277,7 @@ __global__ void xy_x_kernel(const __grid_constant__ XYArgs a, int lines_per_bloc
     const int s = l * ld + (e - l * n);
     const long long g = e_base + e;
     R.out[g] += tr[s];
-    if (PAIRED) A.out[g] += __ldg(A.mx + g) * ta[s];
+    A.out[g] += __ldg(A.mx + g) * ta[s];
   }
 }
 
@@ -466,57 +461,68 @@ __host__ inline cudaError_t xy_y_launch(const XYArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// Both phases of `a` on `stream`, the x phase one thread a line (K3, K5,
-// K6, K8, K10). Families, line lengths or a z width the kernels do not
-// take, x lines past 48 KB, a chain table (nb != 0) and an advection-only
-// launch (xy_chain_launch takes those) return cudaErrorInvalidValue.
+// Both phases of `a` on `stream`, the x phase one thread a line: K3's
+// paired launch, and the weighted launches of K8 and K10. Families, line
+// lengths or a z width the kernels do not take, x lines past 48 KB, a chain
+// table (nb != 0) and any other launch (xy_chain_launch takes those)
+// return cudaErrorInvalidValue.
 __host__ inline int xy_launch(const XYArgs& a, void* stream) {
-  if (!xy_valid(a) || a.nb != 0 || xy_advection(a)) return (int)cudaErrorInvalidValue;
+  if (!xy_valid(a) || a.nb != 0 || !(a.paired || a.weighted)) return (int)cudaErrorInvalidValue;
   const int ny = a.cy[0].n, nx = a.cx[0].n;
   if (a.weighted) {
     if ((size_t)cfd_line_ld(nx) * sizeof(float) > XY_X_SMEM) return (int)cudaErrorInvalidValue;
     return xyw_launch(a, (cudaStream_t)stream);
   }
-  const int tiles = a.paired ? 2 : 1;
   const size_t line_bytes = (size_t)cfd_line_ld(nx) * sizeof(float);
-  if (tiles * line_bytes > XY_X_SMEM) return (int)cudaErrorInvalidValue;
+  if (2 * line_bytes > XY_X_SMEM) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = xy_y_launch(a, s);
   if (err != cudaSuccess) return (int)err;
 
   int per_block = XY_X_LINES;
-  while (per_block > 1 && tiles * per_block * line_bytes > XY_X_SMEM) per_block /= 2;
+  while (per_block > 1 && 2 * per_block * line_bytes > XY_X_SMEM) per_block /= 2;
   const long long lines = (long long)a.zt.nz * ny;
-  const dim3 xgrid((unsigned)((lines + per_block - 1) / per_block), a.nfam / tiles);
-  const size_t smem = tiles * per_block * line_bytes;
-  if (a.paired) {
-    xy_x_kernel<true><<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
-  } else {
-    xy_x_kernel<false><<<xgrid, XY_X_THREADS, smem, s>>>(a, per_block);
-  }
+  const dim3 xgrid((unsigned)((lines + per_block - 1) / per_block), a.nfam / 2);
+  xy_x_kernel<<<xgrid, XY_X_THREADS, 2 * per_block * line_bytes, s>>>(a, per_block);
   return (int)cudaGetLastError();
 }
 
-// The chained x phase (K9 with ADV false: unpaired z-RHS families; K13 with
-// ADV true: advection families): a block runs `lines_per_block` = L lines
-// of one family, nb chains a line, one thread a chain (line_chains.cuh, as
-// compact_lane.cu's kernel). The shared memory holds, for a z-RHS family,
-// the L lines' T_z rows (each made once, by one thread, so that staging
-// an element costs no division or wrap), then the tile of L lines in the
-// chain layout and 2 nb face slots a line. Staging writes T_z sx (three
-// planes; plain stores) or sx (cp.async) there; solve_line_chain solves in
-// place; the block adds the result, times mx for advection, into `out`,
-// coalesced on the element. The chains are the block's last L nb threads.
-// Where they are fewer than XY_CHAIN_STAGERS (a line with few chains: one
-// on a prime line, 14 at nx = 12278), whole warps before them help stage
-// and write back, and pass solve_chain's barriers on their own.
-template <int K, bool ADV>
+// The chained x phase, of one of three kinds (xy_chain_launch<KIND>):
+// unpaired z-RHS families (XY_RHS: K6, K9), advection families (XY_ADV:
+// K13), or pairs of an advection family 2g on scheme 0 and a z-RHS family
+// 2g + 1 on scheme 1 over the same sx (XY_PAIR: K5). A block runs
+// `lines_per_block` = L lines of one family (one pair), nb chains a line,
+// one thread a chain (line_chains.cuh, as compact_lane.cu's kernel). The
+// shared memory holds, where a z-RHS family is staged, the L lines' T_z
+// rows (each made once, by one thread, so that staging an element costs no
+// division or wrap), then the tile in the chain layout and 2 nb face slots
+// a line. Staging writes T_z sx (three planes; plain stores) or sx
+// (cp.async) there; a pair stages both from one read of each element of
+// sx, sx as lines 0 .. L - 1 of the tile and T_z sx as lines L .. 2L - 1,
+// so that one walk and one layout serve both. solve_line_chain solves in
+// place, a pair's first L nb chains on scheme 0's chain table and the rest
+// on scheme 1's, all at the wider stencil K of the two (the narrower
+// scheme's weights past its own are 0, so its rows are the same sums); the
+// block adds the result, times mx for advection, into the outputs,
+// coalesced on the element. The chains are the block's last threads. Where
+// they are fewer than XY_CHAIN_STAGERS (a line with few chains: one on a
+// prime line, 14 at nx = 12278), whole warps before them help stage and
+// write back, and pass solve_chain's barriers on their own.
+enum XYChainKind { XY_RHS, XY_ADV, XY_PAIR };
+
+template <int KIND>
+__host__ __device__ constexpr int xy_chain_tiles() {
+  return KIND == XY_PAIR ? 2 : 1;
+}
+
+template <int K, int KIND>
 __global__ void __launch_bounds__(XY_CHAIN_THREADS)
     xy_chain_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
   extern __shared__ float4 chain_smem[];
-  const XYFamily& F = a.fam[blockIdx.y];
-  const Coef& c = a.cx[0];
-  const int n = c.n, nb = a.nb, L = lines_per_block;
+  constexpr int tiles = xy_chain_tiles<KIND>();
+  const XYFamily& F = a.fam[tiles * blockIdx.y];              // a pair's advection family
+  const XYFamily& R = a.fam[tiles * blockIdx.y + tiles - 1];  // a pair's z-RHS family
+  const int n = a.cx[0].n, nb = a.nb, L = lines_per_block;
   const long long ny = a.cy[0].n;
   const long long lines = (long long)a.zt.nz * ny;
   const long long line0 = (long long)blockIdx.x * L;
@@ -524,77 +530,127 @@ __global__ void __launch_bounds__(XY_CHAIN_THREADS)
   const int nl = rest < L ? (int)rest : L;
   const int count = nl * n;
   const long long e_base = line0 * n;
-  TzRow* tz = reinterpret_cast<TzRow*>(chain_smem);  // L rows (z-RHS only)
-  float* tile = reinterpret_cast<float*>(tz + (ADV ? 0 : L));
-  const int cs = line_chain_stride(L * nb);
+  const int half = L * nb;  // a pair's z-RHS chains start here
+  TzRow* tz = reinterpret_cast<TzRow*>(chain_smem);  // L rows (a z-RHS family only)
+  float* tile = reinterpret_cast<float*>(tz + (KIND == XY_ADV ? 0 : L));
+  const int cs = line_chain_stride(tiles * half);
   float* faces = tile + (n / nb) * cs;  // 2 nb a line
 
-  if constexpr (ADV) {
+  if constexpr (KIND == XY_ADV) {
     walk_chains(count, n, nb, cs,
                 [&](int e, int at, int) { cp_async4(tile + at, F.sx + e_base + e); });
     cp_async_wait_all();
   } else {
     if (threadIdx.x < nl) tz[threadIdx.x] = TzRow(a.zt, (line0 + threadIdx.x) / ny, ny * n);
     __syncthreads();
-    walk_chains(count, n, nb, cs,
-                [&](int e, int at, int l) { tile[at] = tz[l].at(F.sx, e_base + e); });
+    walk_chains(count, n, nb, cs, [&](int e, int at, int l) {
+      const long long g = e_base + e;
+      if constexpr (KIND == XY_PAIR) {
+        const float v = __ldg(F.sx + g);
+        tile[at] = v;
+        tile[at + half] = tz[l].at(R.sx, g, v);
+      } else {
+        tile[at] = tz[l].at(F.sx, g);
+      }
+    });
   }
   __syncthreads();
-  const int lead = blockDim.x - L * nb;  // staging threads before the chains, whole warps
+  const int lead = blockDim.x - tiles * half;  // staging threads before the chains, whole warps
   if ((int)threadIdx.x >= lead) {
-    solve_line_chain<K>(c, a.chx, nb, a.h, a.win, tile, cs, faces, threadIdx.x - lead);
+    const int t = threadIdx.x - lead;
+    const int s = KIND == XY_PAIR && t >= half;  // the chain's scheme
+    solve_line_chain<K>(a.cx[s], a.chx[s], nb, a.h[s], a.win[s], tile, cs, faces, t);
   } else {
     for (int b = 0; b < CHAIN_BARRIERS; ++b) __syncthreads();
   }
   __syncthreads();
   walk_chains(count, n, nb, cs, [&](int e, int at, int) {
     const long long g = e_base + e;
-    F.out[g] += ADV ? __ldg(F.mx + g) * tile[at] : tile[at];
+    if constexpr (KIND == XY_PAIR) {
+      F.out[g] += __ldg(F.mx + g) * tile[at];
+      R.out[g] += tile[at + half];
+    } else {
+      F.out[g] += KIND == XY_ADV ? __ldg(F.mx + g) * tile[at] : tile[at];
+    }
   });
 }
 
 // The chained x phase's shared memory for L lines of n points in nb chains.
-template <bool ADV>
+template <int KIND>
 __host__ inline size_t xy_chain_bytes(int n, int nb, int L) {
-  return (ADV ? 0 : (size_t)L * sizeof(TzRow)) +
-         ((size_t)(n / nb) * line_chain_stride(L * nb) + (size_t)L * 2 * nb) * sizeof(float);
+  constexpr int tiles = xy_chain_tiles<KIND>();
+  return (KIND == XY_ADV ? 0 : (size_t)L * sizeof(TzRow)) +
+         ((size_t)(n / nb) * line_chain_stride(tiles * L * nb) + (size_t)tiles * L * 2 * nb) *
+             sizeof(float);
 }
 
-template <int K, bool ADV>
+template <int K, int KIND>
 __host__ inline void xy_chain_x(const XYArgs& a, unsigned blocks, int per_block, size_t smem,
                                 cudaStream_t s) {
-  const int chains = per_block * a.nb;
+  constexpr int tiles = xy_chain_tiles<KIND>();
+  const int chains = tiles * per_block * a.nb;
   const int lead = chains < XY_CHAIN_STAGERS ? (XY_CHAIN_STAGERS - chains + 31) / 32 * 32 : 0;
-  xy_chain_x_kernel<K, ADV><<<dim3(blocks, a.nfam), lead + chains, smem, s>>>(a, per_block);
+  xy_chain_x_kernel<K, KIND><<<dim3(blocks, a.nfam / tiles), lead + chains, smem, s>>>(a,
+                                                                                      per_block);
 }
 
-// Both phases of `a` on `stream`, the x phase in sub-block chains: K9's
-// unpaired z-RHS launch (ADV false) or K13's advection-only launch (ADV
-// true). `a.chx`, `a.nb` (a divisor of nx, at most XY_CHAIN_THREADS), `a.h`
-// and `a.win` describe the chain table of scheme 0 along x, which every
-// family uses. A block runs XY_CHAIN_THREADS / nb lines, fewer until they
-// fit 48 KB, at least one, in the device's opt-in maximum where one line
-// passes 48 KB, with at least XY_CHAIN_STAGERS threads. Anything else, and a line past that maximum, returns
-// cudaErrorInvalidValue before either phase runs.
-template <bool ADV>
+// Scheme s's chain table along x (ops/lane.py `chain_table`) for nb
+// sub-blocks a line, and its reduced rows' window (h, win), into `a`.
+__host__ inline void xy_chain_table(XYArgs& a, int s, const float* chx, int nb, int h, int win) {
+  a.chx[s] = chx;
+  a.nb = nb;
+  a.h[s] = h;
+  a.win[s] = win;
+}
+
+// Whether the families of `a` are of the chained kind KIND: every family
+// on scheme 0 (XY_RHS, XY_ADV), or each pair's advection family on scheme
+// 0 and its z-RHS family on scheme 1 (XY_PAIR).
+template <int KIND>
+__host__ inline bool xy_chain_kind(const XYArgs& a) {
+  if (a.weighted || (a.paired != 0) != (KIND == XY_PAIR) ||
+      (KIND != XY_PAIR && xy_advection(a) != (KIND == XY_ADV))) {
+    return false;
+  }
+  for (int k = 0; k < a.nfam; ++k) {
+    if (a.fam[k].d2 != (KIND == XY_PAIR ? k % 2 : 0)) return false;
+  }
+  return true;
+}
+
+// Both phases of `a` on `stream`, the x phase in sub-block chains, of the
+// kind KIND (above): K6 and K9 (XY_RHS), K13 (XY_ADV), K5 (XY_PAIR).
+// `a.chx[s]`, `a.h[s]` and `a.win[s]` (xy_chain_table) describe the chain
+// table along x of each scheme s the families use, for `a.nb` sub-blocks a
+// line (a divisor of nx; at most XY_CHAIN_THREADS chains a line in all). A
+// block runs XY_CHAIN_THREADS / (nb tiles) lines, fewer until they fit 48
+// KB, at least one, in the device's opt-in maximum where one line passes 48
+// KB, with at least XY_CHAIN_STAGERS threads. Anything else, and a line
+// past that maximum, returns cudaErrorInvalidValue before either phase runs.
+template <int KIND>
 __host__ inline int xy_chain_launch(const XYArgs& a, void* stream) {
-  const int nx = a.cx[0].n, nb = a.nb, K = a.cx[0].K;
-  bool ok = xy_valid(a) && !a.paired && !a.weighted && xy_advection(a) == ADV && a.chx &&
-            nb >= 1 && nb <= XY_CHAIN_THREADS && nx % nb == 0 && a.win >= 1 &&
-            a.win <= 2 * nb && K >= 1 && K <= CFD_MAX_K;
-  for (int k = 0; ok && k < a.nfam; ++k) ok = a.fam[k].d2 == 0;
+  constexpr int tiles = xy_chain_tiles<KIND>();
+  const int nx = a.cx[0].n, nb = a.nb;
+  bool ok = xy_valid(a) && xy_chain_kind<KIND>(a) && nb >= 1 &&
+            tiles * nb <= XY_CHAIN_THREADS && nx % nb == 0;
+  int K = 0;
+  for (int s = 0; ok && s < tiles; ++s) {
+    ok = a.chx[s] && a.win[s] >= 1 && a.win[s] <= 2 * nb && a.cx[s].K >= 1 &&
+         a.cx[s].K <= CFD_MAX_K;
+    K = a.cx[s].K > K ? a.cx[s].K : K;
+  }
   if (!ok) return (int)cudaErrorInvalidValue;
-  int per_block = XY_CHAIN_THREADS / nb;
-  while (per_block > 1 && xy_chain_bytes<ADV>(nx, nb, per_block) > XY_X_SMEM) --per_block;
-  const size_t smem = xy_chain_bytes<ADV>(nx, nb, per_block);
+  int per_block = XY_CHAIN_THREADS / (tiles * nb);
+  while (per_block > 1 && xy_chain_bytes<KIND>(nx, nb, per_block) > XY_X_SMEM) --per_block;
+  const size_t smem = xy_chain_bytes<KIND>(nx, nb, per_block);
   if (smem > XY_X_SMEM) {
     // per device: the dynamic shared memory these kernels have been opted
     // in to (the device's per-block maximum), 0 until the first launch
     // there that needs it
     static int optin[DIST_MAX_DEVICES];
-    const void* kernels[] = {(const void*)xy_chain_x_kernel<1, ADV>,
-                             (const void*)xy_chain_x_kernel<2, ADV>,
-                             (const void*)xy_chain_x_kernel<3, ADV>};
+    const void* kernels[] = {(const void*)xy_chain_x_kernel<1, KIND>,
+                             (const void*)xy_chain_x_kernel<2, KIND>,
+                             (const void*)xy_chain_x_kernel<3, KIND>};
     int limit;
     const cudaError_t err = dist_smem_limit(optin, kernels, 3, &limit);
     if (err != cudaSuccess) return (int)err;
@@ -606,11 +662,11 @@ __host__ inline int xy_chain_launch(const XYArgs& a, void* stream) {
   const long long lines = (long long)a.zt.nz * a.cy[0].n;
   const unsigned blocks = (unsigned)((lines + per_block - 1) / per_block);
   if (K == 1) {
-    xy_chain_x<1, ADV>(a, blocks, per_block, smem, s);
+    xy_chain_x<1, KIND>(a, blocks, per_block, smem, s);
   } else if (K == 2) {
-    xy_chain_x<2, ADV>(a, blocks, per_block, smem, s);
+    xy_chain_x<2, KIND>(a, blocks, per_block, smem, s);
   } else {
-    xy_chain_x<3, ADV>(a, blocks, per_block, smem, s);
+    xy_chain_x<3, KIND>(a, blocks, per_block, smem, s);
   }
   return (int)cudaGetLastError();
 }

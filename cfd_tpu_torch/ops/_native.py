@@ -153,9 +153,9 @@ def library() -> ctypes.CDLL:
     lib.cfd_strided_rk.restype = i32
     lib.cfd_adv_lap.argtypes = [p] * 11 + [coef] * 4 + [i32, i32, p]
     lib.cfd_adv_lap.restype = i32
-    lib.cfd_adv_lap3.argtypes = [p] * 15 + [coef] * 4 + [i32, i32, p]
+    lib.cfd_adv_lap3.argtypes = [p] * 15 + [coef] * 4 + [i32] * 7 + [p]
     lib.cfd_adv_lap3.restype = i32
-    lib.cfd_div_rhs.argtypes = [p] * 8 + [coef] * 2 + [i32, i32, p]
+    lib.cfd_div_rhs.argtypes = [p] * 8 + [coef] * 2 + [i32] * 5 + [p]
     lib.cfd_div_rhs.restype = i32
     lib.cfd_gradient_pair.argtypes = [p] * 5 + [coef] * 2 + [i64, p]
     lib.cfd_gradient_pair.restype = i32
@@ -200,9 +200,9 @@ def check_order(scheme: CompactScheme) -> None:
 def x_lines_fit(nx: int, tiles: int = 1) -> bool:
     """Whether ``tiles`` staged x-lines of ``nx`` floats, each with its wrap
     slots (``cfd_line_ld``), fit the shared memory an x block stages: the
-    test ``xy_launch`` (``csrc/xy_phase.cuh``: K3, K5, K6, K8, K10) and K7
-    make before they launch. A paired launch (K3, K5) stages two tiles,
-    every other one."""
+    test ``xy_launch`` (``csrc/xy_phase.cuh``: K3, K8, K10) and K7 make
+    before they launch. K3's paired launch stages two tiles, every other
+    one."""
     return tiles * 4 * ((nx + AHEAD + 1) | 1) <= X_BLOCK_BYTES
 
 
@@ -210,8 +210,8 @@ def xy_planes_fit(scheme: CompactScheme, ny: int, nx: int) -> bool:
     """Whether ``"auto"`` routes (ny, nx) planes to K7-K10 and K13 for
     ``scheme``: both lines at least the scheme's ``min_points``, and one
     staged x-line within an x block's 48 KB (``x_lines_fit``), as the JAX
-    package's routing has it. K9 and K13's chained x phase also takes
-    longer lines."""
+    package's routing has it. The chained x phase of K6, K9 and K13 also
+    takes longer lines."""
     return min(ny, nx) >= scheme.min_points() and x_lines_fit(nx)
 
 

@@ -26,12 +26,16 @@ z stencil; the TPU's VMEM slab condition becomes the card's
 ``adv_lap_rhs3_ref`` and ``lap_rhs_ref``, the plain PyTorch versions, which
 apply the dense operators.
 
-K3 and K5 stage two x-lines per line in their x phase (f and T_z f), so
-they take x-lines up to nx = 6134; ``adv_lap_fits`` and ``adv_lap3_fits``
-say where, as ``xy_launch`` tests it before it launches, and the fused
-substep (``ops/fused_step.py``) decides its head by them. K9's x phase
-runs K1's sub-block chains (``csrc/line_chains.cuh``) on the lines
-``lane.line_nb`` cuts and the chain table ``lane`` caches for K1.
+K3 stages two x-lines per line in its x phase (f and T_z f), one thread a
+line, so it takes x-lines up to nx = 6134; ``adv_lap_fits`` says where, as
+``xy_launch`` tests it before it launches. K5's x phase stages the same two
+lines a component and solves them in K1's sub-block chains
+(``csrc/line_chains.cuh``), the d1 and the d2 scheme's chain tables side
+by side, and takes longer lines; ``adv_lap3_fits`` keeps K3's limit, as
+the JAX package's routing has it. The fused substep
+(``ops/fused_step.py``) decides its head by them. K9's x phase runs the
+same chains on T_z f. The chains are those ``lane.line_nb`` cuts, on the
+chain tables ``lane`` caches for K1.
 
 ``LAUNCHES``, ``LAUNCHES3`` and ``LAP_LAUNCHES`` count calls that launched
 K3, K5 and K9 (each kernel's two phases count once); nothing but the launch
@@ -118,8 +122,10 @@ def adv_lap_fits(shape) -> bool:
 
 
 def adv_lap3_fits(shape) -> bool:
-    """Whether K5's x phase takes the x-lines of (nz, ny, nx) fields: K5
-    stages each component's two lines as K3 does (``adv_lap_fits``)."""
+    """Whether the fused substep takes K5 for (nz, ny, nx) fields: the
+    x-lines K3 takes (``adv_lap_fits``), as the JAX package routes K5 by
+    the VMEM its two staged lines a component need. K5's chained x phase
+    also takes longer lines."""
     return _native.x_lines_fit(shape[-1], tiles=2)
 
 
@@ -147,8 +153,8 @@ def adv_lap_rhs_ref(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: Comp
 
 
 def _xy_tables(shape, dz, dy, dx, scheme1, scheme2, dev):
-    """The K3/K5 table arguments: the four line tables, the z tables, the
-    four Coefs, nz and W."""
+    """K3's table arguments: the four line tables, the z tables, the four
+    Coefs, nz and W."""
     nz, ny, nx = shape
     bt, tt = device_z_tables(scheme2, nz, float(dz), dev)
     c1y, t1y = _native.launch_tables(scheme1, ny, float(dy), dev)
@@ -201,9 +207,9 @@ def adv_lap_rhs3(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
     ``u = (u0, u1, u2)`` in one call: ``((axy0, axy1, axy2), (r0, r1, r2))``.
 
     The kernel's x phase stages each component once for both of its
-    outputs (``csrc/adv_lap3.cu``). CUDA tensors must be float32 and
-    contiguous and run the kernel; a launch failure raises. CPU tensors
-    take ``adv_lap_rhs3_ref``.
+    outputs and solves both in sub-block chains (``csrc/adv_lap3.cu``).
+    CUDA tensors must be float32 and contiguous and run the kernel; a
+    launch failure raises. CPU tensors take ``adv_lap_rhs3_ref``.
     """
     global LAUNCHES3
     if len(u) != 3:
@@ -214,14 +220,24 @@ def adv_lap_rhs3(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
     if u0.device.type == "cpu":
         return adv_lap_rhs3_ref(u, dz, dy, dx, scheme1, scheme2)
     _native.check_operands("adv_lap3", u0, u1, u2)
+    nz, ny, nx = u0.shape
+    dev = u0.device
+    bt, tt = device_z_tables(scheme2, nz, float(dz), dev)
+    c1y, t1y = _native.launch_tables(scheme1, ny, float(dy), dev)
+    c2y, t2y = _native.launch_tables(scheme2, ny, float(dy), dev)
+    nb = lane.line_nb(nx)
+    c1x, ch1, h1, win1 = lane._chain_launch_tables(scheme1, nx, nb, float(dx), dev)
+    c2x, ch2, h2, win2 = lane._chain_launch_tables(scheme2, nx, nb, float(dx), dev)
     axy = [torch.empty_like(u0) for _ in range(3)]
     r = [torch.empty_like(u0) for _ in range(3)]
-    with torch.cuda.device(u0.device):
+    with torch.cuda.device(dev):
         err = _native.library().cfd_adv_lap3(
             u0.data_ptr(), u1.data_ptr(), u2.data_ptr(),
             *(a.data_ptr() for a in axy), *(a.data_ptr() for a in r),
-            *_xy_tables(u0.shape, dz, dy, dx, scheme1, scheme2, u0.device),
-            torch.cuda.current_stream().cuda_stream,
+            t1y.data_ptr(), t2y.data_ptr(), ch1.data_ptr(), ch2.data_ptr(),
+            bt.data_ptr(), tt.data_ptr(), ctypes.byref(c1y), ctypes.byref(c2y),
+            ctypes.byref(c1x), ctypes.byref(c2x), nz, scheme2.stencil_width,
+            nb, h1, win1, h2, win2, torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "adv_lap3")
     LAUNCHES3 += 1

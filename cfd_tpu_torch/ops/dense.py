@@ -7,6 +7,12 @@ recurrence in it. It serves ``method="matmul"``, every tensor on the CPU,
 and the float64 reference that the kernels are held against on the card
 (with ``torch.backends.cuda.matmul.allow_tf32 = False`` for float32).
 
+In float64 an x-line (the last axis) of more than ``BANDED_PAST`` points
+takes the derivative as the banded (PCR, cyclic for a periodic scheme)
+solve of the same compact system instead: the same function, without the (n, n) operator, which is
+1.2 GB and seconds of host time to build at n = 12278. Other dtypes keep
+the dense product there, the plain version timed beside the kernels.
+
 The fused substep's plain versions (``ops/adv_lap.py``, ``ops/megastep.py``)
 apply the scheme's two sides on their own as well: ``dense_apply`` takes
 ``"derivative"`` (T^{-1} B), ``"rhs"`` (B), ``"lhs"`` (T) or
@@ -22,6 +28,8 @@ import numpy as np
 import torch
 
 from ..schemes import CompactScheme, lhs_bands, rhs_matrix
+from . import tridiag
+from .rhs import compact_rhs
 
 __all__ = ["lhs_matrix", "dense_operator", "dense_apply", "dense_derivative"]
 
@@ -76,10 +84,33 @@ def dense_apply(
     return out.reshape(f.shape)
 
 
+BANDED_PAST = 1024  # longest float64 x-line taken through the dense operator
+
+
+@functools.lru_cache(maxsize=None)
+def _line_factors(scheme: CompactScheme, n: int):
+    # PCR: log2(n) steps over the whole field, where Thomas takes 2 n
+    dl, d, du = lhs_bands(scheme, n)
+    if scheme.periodic:
+        return tridiag.cyclic_factor(dl, d, du, scheme.alpha, scheme.alpha, "pcr")
+    return tridiag.pcr_factor(dl, d, du)
+
+
+def _banded_x(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:
+    # the compact system's RHS on every x-line, then its banded solve
+    n = f.shape[-1]
+    rhs = compact_rhs(f.reshape(-1, n).T.contiguous(), dx, scheme)
+    return tridiag.solve(_line_factors(scheme, n), rhs, 0).T.reshape(f.shape).contiguous()
+
+
 def dense_derivative(f: torch.Tensor, dx, scheme: CompactScheme, axis: int) -> torch.Tensor:
-    """Compact derivative of ``f`` along ``axis`` by the dense operator.
+    """Compact derivative of ``f`` along ``axis`` by the dense operator, or
+    in float64 on an x-line past ``BANDED_PAST`` points by the banded solve
+    (see module doc).
 
     Returns a contiguous tensor of ``f``'s shape, dtype and device.
     """
+    if f.dtype == torch.float64 and axis % f.ndim == f.ndim - 1 and f.shape[-1] > BANDED_PAST:
+        return _banded_x(f, dx, scheme)
     div = float(dx) ** scheme.derivative_order
     return dense_apply("derivative", f, scheme, axis, div)

@@ -199,11 +199,13 @@ def divergence(
 ) -> torch.Tensor:
     """div(u) of a 3-component vector field (ux, uy, uz).
 
-    On ``"auto"`` with CUDA float32 (nz, ny, nx) components and a periodic
-    d1 scheme it takes the fused route (``ops/vec.divergence_fused``: K6
-    forms ``B_z uz + T_z (D1x ux + D1y uy)`` from one read of each
-    component, and one z solve of K2 turns it into div u), as the JAX
-    function does on the TPU. Otherwise it is the sum of three derivatives.
+    On ``"auto"`` with CUDA (nz, ny, nx) components that
+    ``vec.div_fused_supported`` takes (float32, a periodic d1 scheme, nz
+    of at least the z stencil, planes within an x block) it takes the fused
+    route (``ops/vec.divergence_fused``: K6 forms ``B_z uz + T_z (D1x ux +
+    D1y uy)`` from one read of each component, and one z solve of K2 turns
+    it into div u), as the JAX function does on the TPU. Otherwise it is
+    the sum of three derivatives.
     """
     ux, uy, uz = u
     dz, dy, dx = spacings3(spacing)
@@ -212,9 +214,8 @@ def divergence(
         and ux.device.type == "cuda"
         and ux.ndim == 3
         and ux.shape == uy.shape == uz.shape
-        and ux.dtype == uy.dtype == uz.dtype == torch.float32
-        and scheme.periodic
-        and scheme.derivative_order == 1
+        and ux.dtype == uy.dtype == uz.dtype
+        and vec.div_fused_supported(scheme, *ux.shape, ux.dtype)
     ):
         return vec.divergence_fused((ux, uy, uz), dz, dy, dx, scheme)
     return (

@@ -106,8 +106,8 @@ def chain_table(scheme: CompactScheme, n: int, nb: int):
 @functools.lru_cache(maxsize=64)
 def _chain_launch_tables(scheme: CompactScheme, n: int, nb: int, dx: float, device):
     """(Coef, float32 chain table on ``device``, h, win) for one launch of
-    K1, or of K9's and K13's x phase (``ops/adv_lap.py``, ``ops/pair.py``),
-    which run the same chains."""
+    K1, or of the x phase of K5, K6, K9 and K13 (``ops/adv_lap.py``,
+    ``ops/vec.py``, ``ops/pair.py``), which run the same chains."""
     coef, _ = _native.kernel_tables(scheme, n)
     table, h, win = chain_table(scheme, n, nb)
     scale = (1.0 / dx) ** scheme.derivative_order

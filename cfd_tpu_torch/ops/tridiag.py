@@ -184,12 +184,13 @@ def pcr_solve(factors: PCRFactors, rhs: torch.Tensor, axis: int = 0) -> torch.Te
     return _line_view(factors.invb, d, axis) * d
 
 
-def cyclic_factor(dl, d, du, corner_top: float, corner_bot: float) -> CyclicFactors:
-    """Factor a cyclic tridiagonal system over a Thomas core.
+def cyclic_factor(dl, d, du, corner_top: float, corner_bot: float,
+                  method: str = "thomas") -> CyclicFactors:
+    """Factor a cyclic tridiagonal system over a Thomas (or PCR) core.
 
     ``corner_top`` couples row 0 to x[n-1]; ``corner_bot`` couples row n-1
     to x[0] (both equal alpha for periodic compact schemes). The same split
-    as ``cfd_tpu.ops.tridiag.cyclic_factor(..., method="thomas")``.
+    as ``cfd_tpu.ops.tridiag.cyclic_factor(..., method)``.
     """
     dl, d, du = (np.asarray(a, dtype=np.float64) for a in (dl, d, du))
     n = d.shape[0]
@@ -197,7 +198,7 @@ def cyclic_factor(dl, d, du, corner_top: float, corner_bot: float) -> CyclicFact
     d_mod = d.copy()
     d_mod[0] = d[0] - gamma
     d_mod[-1] = d[-1] - corner_top * corner_bot / gamma
-    core = thomas_factor(dl, d_mod, du)
+    core = factor(dl, d_mod, du, method)
     u = np.zeros(n)
     u[0] = gamma
     u[-1] = corner_bot

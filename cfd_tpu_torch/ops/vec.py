@@ -20,10 +20,13 @@ and rB along z. On CUDA float32 tensors ``div_rhs`` launches ``div_rhs``
 (``csrc/div_rhs.cu``) and ``curl_rhs`` launches ``curl_rhs``
 (``csrc/curl_rhs.cu``); on CPU tensors they return ``div_rhs_ref`` and
 ``curl_rhs_ref``, the plain PyTorch versions, which apply the dense
-operators. Periodic d1 schemes only, as in the JAX package;
-``curl_fused_supported`` says where ``"auto"`` takes the fused curl, as its
-JAX namesake does on the TPU (the TPU's VMEM slab condition becomes the
-card's ``_native.xy_planes_fit``).
+operators. K6's x phase runs K1's sub-block chains (``csrc/line_chains.cuh``)
+on the lines ``lane.line_nb`` cuts and the chain table ``lane`` caches for
+K1, as K9's does. Periodic d1 schemes only, as in the JAX package;
+``div_fused_supported`` and ``curl_fused_supported`` say where ``"auto"``
+takes the fused divergence and curl, as their JAX namesakes do on the TPU
+(the TPU's VMEM slab condition becomes the card's
+``_native.xy_planes_fit``).
 
 ``LAUNCHES`` and ``CURL_LAUNCHES`` count calls that launched K6 and K10
 (each kernel's two phases count once); nothing but the launch adds to them.
@@ -36,7 +39,7 @@ import ctypes
 import torch
 
 from ..schemes import CompactScheme
-from . import _native, strided
+from . import _native, lane, strided
 from .adv_lap import device_z_tables
 from .dense import dense_apply, dense_derivative
 
@@ -46,6 +49,7 @@ __all__ = [
     "div_rhs",
     "div_rhs_ref",
     "divergence_fused",
+    "div_fused_supported",
     "curl_fused_supported",
     "curl_rhs",
     "curl_rhs_ref",
@@ -90,13 +94,14 @@ def div_rhs(ux, uy, uz, dz, dy, dx, scheme: CompactScheme):
     dev = ux.device
     bt, tt = device_z_tables(scheme, nz, float(dz), dev)
     cy, ty = _native.launch_tables(scheme, ny, float(dy), dev)
-    cx, tx = _native.launch_tables(scheme, nx, float(dx), dev)
+    nb = lane.line_nb(nx)
+    cx, chx, h, win = lane._chain_launch_tables(scheme, nx, nb, float(dx), dev)
     r = torch.empty_like(ux)
     with torch.cuda.device(dev):
         err = _native.library().cfd_div_rhs(
             ux.data_ptr(), uy.data_ptr(), uz.data_ptr(), r.data_ptr(),
-            ty.data_ptr(), tx.data_ptr(), bt.data_ptr(), tt.data_ptr(),
-            ctypes.byref(cy), ctypes.byref(cx), nz, scheme.stencil_width,
+            ty.data_ptr(), chx.data_ptr(), bt.data_ptr(), tt.data_ptr(),
+            ctypes.byref(cy), ctypes.byref(cx), nz, scheme.stencil_width, nb, h, win,
             torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "div_rhs")
@@ -111,9 +116,7 @@ def divergence_fused(u, dz, dy, dx, scheme: CompactScheme):
     return strided.leading_solve(div_rhs(ux, uy, uz, dz, dy, dx, scheme), scheme)
 
 
-def curl_fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) -> bool:
-    """Whether K10 and the two z solves take (nz, ny, nx) fields of
-    ``dtype`` for ``scheme``."""
+def _fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) -> bool:
     return (
         scheme.derivative_order == 1
         and scheme.periodic
@@ -121,6 +124,19 @@ def curl_fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype
         and nz >= max(scheme.min_points(), 2 * scheme.stencil_width + 1)
         and _native.xy_planes_fit(scheme, ny, nx)
     )
+
+
+def div_fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) -> bool:
+    """Whether ``divergence`` takes K6 and the z solve for (nz, ny, nx)
+    fields of ``dtype`` and ``scheme``. The JAX routing: K6's chained x
+    phase also takes longer lines."""
+    return _fused_supported(scheme, nz, ny, nx, dtype)
+
+
+def curl_fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) -> bool:
+    """Whether K10 and the two z solves take (nz, ny, nx) fields of
+    ``dtype`` for ``scheme``."""
+    return _fused_supported(scheme, nz, ny, nx, dtype)
 
 
 def curl_rhs_ref(ux, uy, uz, dz, dy, dx, scheme: CompactScheme):

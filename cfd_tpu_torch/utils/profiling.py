@@ -55,6 +55,13 @@ def _mark(x):
         torch.cuda._sleep(1)
 
 
+def _device_events(prof):
+    # the device activities of a capture, by start
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.time_range.start)
+
+
 def device_op_time_ms(fn, x, *, iters: int = 10):
     """Time ``fn(x)`` by the profiler's device timeline: ``(op_ms,
     floor_ms, n)``.
@@ -72,10 +79,13 @@ def device_op_time_ms(fn, x, *, iters: int = 10):
     miss. ``(inf, inf, 0)`` where the capture has no device timeline, as
     on the CPU, or an incomplete one: fewer spans than calls and scales,
     or a scale that is not one kernel (the card's profiler now and then
-    returns a capture with no device activity at all).
+    returns a capture with no device activity at all, whether it opens on
+    an idle card or behind queued work).
     """
     cuda = x.device.type == "cuda"
     out = fn(_bench_scale(x))  # warm up: builds, tables, allocator
+    if cuda:
+        torch.cuda.synchronize(x.device)  # open on an idle card
     with profile(activities=_activities()) as prof:
         _mark(x)  # leads the capture, where activities may go missing
         for _ in range(iters):
@@ -85,11 +95,8 @@ def device_op_time_ms(fn, x, *, iters: int = 10):
             out = fn(y)
         if cuda:
             torch.cuda.synchronize(x.device)
-    device = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and not getattr(e, "is_user_annotation", False)),
-                    key=lambda e: e.time_range.start)
     spans = []  # [activities, microseconds] after each marker
-    for e in device:
+    for e in _device_events(prof):
         if "spin_kernel" in e.name:
             spans.append([0, 0.0])
         elif spans:
@@ -110,16 +117,18 @@ def kernel_ms_by_name(fn, *, calls: int = 10) -> dict:
     ``{}`` where the capture has no device activity: on the CPU, or when
     the card's profiler returns an empty capture twice running."""
     fn()  # warm up: builds, tables, allocator
+    cuda = torch.cuda.is_available()
     for _ in range(2):
+        if cuda:
+            torch.cuda.synchronize()  # open on an idle card
         with profile(activities=_activities()) as prof:
             for _ in range(calls):
                 fn()
-            if torch.cuda.is_available():
+            if cuda:
                 torch.cuda.synchronize()
         out = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
-                out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
+        for e in _device_events(prof):
+            out[e.name] = out.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / calls
         if out:
             return out
     return {}

@@ -48,11 +48,17 @@ script exits non-zero without printing the final line:
               63 (one chain, the whole line) at ragged line counts, every
               scheme and filter but at 8192 (a d1, d2 and filter each
               periodic and not), with and without its acc epilogue; K9
-              (the two periodic d2 schemes) at (64, 128, 8192), (5, 8,
-              8191) and (5, 8, 12278) and K13 (the four d1 schemes) at (3,
-              8, 8191) and (2, 8, 12278): their x phase in sub-block chains
-              on long lines, a prime one (one chain) and 14 chains of 877
-              rows (opted-in shared memory). Gate:
+              (the two periodic d2 schemes) and K6 (the two periodic d1
+              schemes) at (64, 128, 8192), (5, 8, 8191) and (5, 8, 12278)
+              and K13 (the four d1 schemes) at (3, 8, 8191) and (2, 8,
+              12278): their x phase in sub-block chains on long lines, a
+              prime one (one chain) and 14 chains of 877 rows (opted-in
+              shared memory); K5 (both periodic pairs) at (5, 8, 257) (one
+              chain) and (5, 8, 6134) (two chains of 3067 rows, opted in):
+              its paired x phase. The float64 plain versions on lines of
+              more than 1024 points take their x derivative from the banded
+              solve of the same compact system (``dense.dense_derivative``),
+              not from a dense operator. Gate:
               max|err| <= 1e-5 * max|ref|, 5e-5 for second derivatives
               with closure rows; K11/K12 at the JAX dist kernels' gates (2e-6; 2e-5 d2
               with closures; 5e-6 periodic filters, 1e-4 filters with
@@ -137,9 +143,10 @@ script exits non-zero without printing the final line:
               distributed step on (2, 2, 2) and (1, 2, 2) in
               turns with the single-device fused step. Shards that share one
               card measure the distributed algorithm's overhead, not its
-              scaling. At (64, 128, 8192) (and 256^3 for the kernels): K13
-              and K9 with their plain versions, queued (device time alone),
-              beside their bounds; K13 and K2 rk with their unfused
+              scaling. At (64, 128, 8192) (and 256^3 for the kernels): K13,
+              K9 and K6 (and K5 at 256^3) with their plain versions, queued
+              (device time alone), beside their bounds; K13 and K2 rk with
+              their unfused
               compositions, K2 rk with its plain version, the stepwise tail
               against K4, and each model's step in turns with its generic
               step.
@@ -166,9 +173,10 @@ script exits non-zero without printing the final line:
               (2, 2, 2) at 256^3, diag_axes, diag_rk3 and diag_ns at 128^3.
               A failed gate or an error row fails the run; so does a script
               that launched none of its path's kernels.
-10. phase_split — the durations of K13's and K9's y and x phase kernels
-              at (64, 128, 8192) and 256^3, by torch.profiler (after the
-              scripts, which read profiler captures themselves).
+10. phase_split — the durations of the y and x phase kernels of K13, K9
+              and K6 at (64, 128, 8192) and 256^3 and of K5 at 256^3, by
+              torch.profiler (after the scripts, which read profiler
+              captures themselves).
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -615,17 +623,18 @@ def _slice3_cases(stats, failures, g, dev):
             label = f"{s1.name}+{s2.name} {tuple(shape)}"
             got = adv_lap.adv_lap_rhs3(u, dz, dy, dx, s1, s2)
             ref = adv_lap.adv_lap_rhs3_ref(tuple(c.double() for c in u), dz, dy, dx, s1, s2)
-            gap = 0.0  # K5 against three K3 launches on the same components
+            gap = rel_gap = 0.0  # K5 against three K3 launches on the same components
             for i in range(3):
                 for out, g_, r_ in zip(("axy", "r"), (got[0][i], got[1][i]),
                                        (ref[0][i], ref[1][i])):
                     _compare(stats, "adv_lap3", f"{out}{i} {label}", g_, r_, failures)
                 k3 = adv_lap.adv_lap_rhs(u[i], u[0], u[1], dz, dy, dx, s1, s2)
-                gap = max(gap, *((x - y).abs().max().item()
-                                 for x, y in zip((got[0][i], got[1][i]), k3)))
+                for x, y in zip((got[0][i], got[1][i]), k3):
+                    d = (x - y).abs().max().item()
+                    gap, rel_gap = max(gap, d), max(rel_gap, d / y.abs().max().item())
             del ref
             emit({"phase": "kernels", "kernel": "adv_lap3", "case": f"vs 3 x adv_lap {label}",
-                  "max_abs_gap": gap})
+                  "max_abs_gap": gap, "max_rel_gap": rel_gap})
 
 
 def _slice4_cases(stats, failures, g, dev):
@@ -695,8 +704,8 @@ def phase_kernels(dev) -> dict:
 # K1's chains (csrc/line_chains.cuh) at ragged line counts: n = 512, 1024
 # and 8192, and lines that no divisor cuts into chains of 32 rows (257, 63:
 # one chain, the whole line); every derivative scheme and filter, but at
-# 8192 a d1, a d2 and a filter each periodic and not (whose dense float64
-# plain version takes seconds a scheme on the host)
+# 8192 a d1, a d2 and a filter each periodic and not (whose float64 plain
+# version is a Thomas solve over the 8192 rows, one step at a time)
 CHAIN_SHAPES = ((3, 37, 512), (37, 1024), (3, 8192), (3, 37, 257), (5, 7, 63))
 CHAIN_LONG_SCHEMES = [ct.SCHEME4, ct.SCHEME4_PERIODIC, ct.SCHEME6_D2, ct.SCHEME4_D2_PERIODIC,
                       FILTERS[2], FILTERS[3]]
@@ -1146,20 +1155,25 @@ def _slice6_cases(stats, failures, g, dev):
         del r, adv, fin, q, d64
 
 
-# K9's and K13's chained x phase (csrc/xy_phase.cuh xy_chain_launch) on the
-# lines that phase 3 holds nowhere else: K9 at LONG (128 chains of 64 rows;
-# 256^3 and RAGGED are in _slice4_cases, K13 at all three in
-# _slice6_cases), and both on a prime line (8191: one chain, one line a
-# block) and on 12278 points (14 chains of 877 rows: one line a block in
-# opted-in shared memory). K9 takes nz >= 5 and ny >= 5 for its sixth-order
-# scheme, K13 ny >= 6 for SCHEME6.
+# The chained x phase (csrc/xy_phase.cuh xy_chain_launch) on the lines
+# that phase 3 holds nowhere else: K9 and K6 at LONG (128 chains of 64 rows;
+# 256^3 and RAGGED are in _slice3_cases and _slice4_cases, K13 at all three
+# in _slice6_cases), K9, K13 and K6 on a prime line (8191: one chain, one
+# line a block) and on 12278 points (14 chains of 877 rows: one line a
+# block in opted-in shared memory); K5's paired launch on a one-chain line
+# (257) and on 6134 points (two chains of 3067 rows: one line of two
+# families a block, opted in). K9, K6 and K5 take nz >= 5 and ny >= 5 for
+# their sixth-order schemes, K13 ny >= 6 for SCHEME6.
 XY_CHAIN_SHAPES = {"lap_rhs": (LONG, (5, 8, 8191), (5, 8, 12278)),
-                   "adv_pair": ((3, 8, 8191), (2, 8, 12278))}
+                   "adv_pair": ((3, 8, 8191), (2, 8, 12278)),
+                   "div_rhs": (LONG, (5, 8, 8191), (5, 8, 12278)),
+                   "adv_lap3": ((5, 8, 257), (5, 8, 6134))}
 
 
 def _xy_chain_cases(stats, failures, g, dev):
-    """K9 (both periodic d2 schemes) and K13 (the four d1 schemes) against
-    their plain float64 versions on XY_CHAIN_SHAPES."""
+    """K9 (both periodic d2 schemes), K13 (the four d1 schemes), K6 (both
+    periodic d1 schemes) and K5 (both FUSED_PAIRS) against their plain
+    float64 versions on XY_CHAIN_SHAPES."""
     for kernel, shapes in XY_CHAIN_SHAPES.items():
         for shape in shapes:
             dz, dy, dx = _spacing(shape)
@@ -1171,11 +1185,25 @@ def _xy_chain_cases(stats, failures, g, dev):
                 for scheme in (s for s in D2_SCHEMES if s.periodic):
                     _compare(stats, kernel, label(scheme), adv_lap.lap_rhs(f, dz, dy, dx, scheme),
                              adv_lap.lap_rhs_ref(f64, dz, dy, dx, scheme), failures)
-            else:
+            elif kernel == "adv_pair":
                 for scheme in D1_SCHEMES:
                     _compare(stats, kernel, label(scheme),
                              pair.advection_pair(f, ux, uy, dy, dx, scheme),
                              pair.advection_pair_ref(f64, ux64, uy64, dy, dx, scheme), failures)
+            elif kernel == "div_rhs":
+                for scheme, _ in FUSED_PAIRS:
+                    _compare(stats, kernel, label(scheme),
+                             vec.div_rhs(f, ux, uy, dz, dy, dx, scheme),
+                             vec.div_rhs_ref(f64, ux64, uy64, dz, dy, dx, scheme), failures)
+            else:
+                for s1, s2 in FUSED_PAIRS:
+                    got = adv_lap.adv_lap_rhs3((f, ux, uy), dz, dy, dx, s1, s2)
+                    ref = adv_lap.adv_lap_rhs3_ref((f64, ux64, uy64), dz, dy, dx, s1, s2)
+                    for i in range(3):
+                        for out, g_, r_ in zip(("axy", "r"), (got[0][i], got[1][i]),
+                                               (ref[0][i], ref[1][i])):
+                            _compare(stats, kernel, f"{out}{i} {label(s1)}+{s2.name}", g_, r_,
+                                     failures)
             del f, ux, uy, f64, ux64, uy64
 
 
@@ -1335,9 +1363,10 @@ def phase_long_slice(dev, name) -> dict:
 
 
 def _long_times(dev, smi) -> dict:
-    """CUDA-event medians at LONG f32 (and K13, K9, K2 rk at 256^3), in
-    turns: K13 and K9 with their plain versions, queued (device time
-    alone), beside their bounds (their y and x phases: phase_split); K13
+    """CUDA-event medians at LONG f32 (and K13, K9, K6, K5, K2 rk at
+    256^3), in turns: K13, K9 and K6 (and K5 at 256^3) with their plain
+    versions, queued (device time alone), beside their bounds (their y and
+    x phases: phase_split); K13
     and K2 rk with their unfused compositions
     (row 16: K7, two multiplies and an add; row 7: K2 solve_only and the
     elementwise update), K2 rk with its plain version, the stepwise tail
@@ -1357,7 +1386,19 @@ def _long_times(dev, smi) -> dict:
                                           k13, queued=True)
         times[f"lap_rhs_{key}"] = _turns(lambda: adv_lap.lap_rhs_ref(f, dz, dy, dx, s2), k9,
                                          queued=True)
-        for name in ("adv_pair", "lap_rhs"):
+        # K6 as the NS projection calls it (LONG and 256^3) and K5 as the NS
+        # and Burgers steps do (256^3; it takes no line past 6134), likewise
+        times[f"div_rhs_{key}"] = _turns(lambda: vec.div_rhs_ref(f, ux, uy, dz, dy, dx, s1),
+                                         lambda: vec.div_rhs(f, ux, uy, dz, dy, dx, s1),
+                                         queued=True)
+        names = ["adv_pair", "lap_rhs", "div_rhs"]
+        if shape != LONG:
+            u = (f, ux, uy)
+            times[f"adv_lap3_{key}"] = _turns(
+                lambda: adv_lap.adv_lap_rhs3_ref(u, dz, dy, dx, s1, s2),
+                lambda: adv_lap.adv_lap_rhs3(u, dz, dy, dx, s1, s2), queued=True)
+            names.append("adv_lap3")
+        for name in names:
             t = times[f"{name}_{key}"]
             t["bound_ms"] = BYTES_PER_POINT[name] * f.numel() / HBM_BYTES_PER_S * 1e3
             t["nb"] = lane.line_nb(shape[-1])
@@ -1415,10 +1456,11 @@ def _long_times(dev, smi) -> dict:
 
 
 def phase_split(dev, smi) -> dict:
-    """The durations of K13's and K9's y and x phase kernels, at LONG and
-    256^3 f32, by torch.profiler (``kernel_ms_by_name``): the two kernels
-    of one call apart. Run last, after the benchmark scripts, whose
-    timelines are read from profiler captures too."""
+    """The durations of the y and x phase kernels of K13, K9 and K6 at LONG
+    and 256^3 f32, and of K5 at 256^3, by torch.profiler
+    (``kernel_ms_by_name``): the two kernels of one call apart. Run last,
+    after the benchmark scripts, whose timelines are read from profiler
+    captures too."""
     g = torch.Generator(device=dev).manual_seed(20261021)
     s1, s2 = FUSED_PAIRS[0]
     phases = {}
@@ -1429,6 +1471,11 @@ def phase_split(dev, smi) -> dict:
         phases[f"adv_pair_{key}"] = kernel_ms_by_name(
             lambda: pair.advection_pair(f, ux, uy, dy, dx, s1))
         phases[f"lap_rhs_{key}"] = kernel_ms_by_name(lambda: adv_lap.lap_rhs(f, dz, dy, dx, s2))
+        phases[f"div_rhs_{key}"] = kernel_ms_by_name(
+            lambda: vec.div_rhs(f, ux, uy, dz, dy, dx, s1))
+        if shape != LONG:
+            phases[f"adv_lap3_{key}"] = kernel_ms_by_name(
+                lambda: adv_lap.adv_lap_rhs3((f, ux, uy), dz, dy, dx, s1, s2))
         del f, ux, uy
     emit({"phase": "phase_split", "device": smi, "dtype": "float32", "phases_ms": phases,
           "note": "mean device ms a call spends in each kernel, by kernel name"})
@@ -2395,15 +2442,17 @@ def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
             "timed": [f"{name} {next(v for k, v in DIAG_TIMED.items() if name.startswith(k))} "
                       "f32, queued"],
         })
-    # K9 at LONG (its launches on the long-x paths) and 256^3, and K13 at
-    # both, queued, with their phases (the chained x phase and the y phase)
-    for name in ("lap_rhs", "adv_pair"):
+    # K9, K13 and K6 at LONG (their launches on the long-x paths) and 256^3,
+    # and K5 at 256^3, queued, with their phases (the chained x phase and
+    # the y phase)
+    for name, shapes in (("lap_rhs", (LONG, (N, N, N))), ("adv_pair", (LONG, (N, N, N))),
+                         ("div_rhs", (LONG, (N, N, N))), ("adv_lap3", ((N, N, N),))):
         row = next(r for r in rows if r["name"] == name)
         row["queued"] = {
             "x".join(map(str, shape)): {k: long_times[f"{name}_{'x'.join(map(str, shape))}"][k]
                                         for k in ("kernel_ms", "plain_ms", "bound_ms",
                                                   "phases_ms", "nb")}
-            for shape in (LONG, (N, N, N))}
+            for shape in shapes}
     # row 2: K1 on lines of 512 and 8192 points, queued
     lane_row = next(r for r in rows if r["name"] == "compact_lane")
     lane_row["long_lines"] = {

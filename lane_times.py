@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of the kernels that solve whole x-lines in sub-block chains,
-on one card, queued: K1 (``compact_lane``), and K9 (``lap_rhs``) and K13
-(``advection_pair``), whose x phase runs the same chains.
+on one card, queued: K1 (``compact_lane``), and K9 (``lap_rhs``), K13
+(``advection_pair``), K6 (``div_rhs``) and K5 (``adv_lap_rhs3``), whose x
+phase runs the same chains.
 
 Times the checkout in the working directory, so that two checkouts can be
 held against each other in one run on one card:
@@ -24,10 +25,18 @@ as the long-x stepwise substep calls them (rows 17 and 16): at (64, 128,
 (14 chains of 877 rows), each beside its byte bound (K9 one read and one
 write a point, K13 three reads and one write) and the durations of its y
 and x phase kernels from torch.profiler (no library call computes either).
+K6 (``div_rhs``, SCHEME4_PERIODIC; row 20) at (64, 128, 8192), 256^3 and
+(42, 128, 12278), and K5 (``adv_lap_rhs3``, SCHEME4_PERIODIC with
+SCHEME4_D2_PERIODIC; row 19) at 256^3, as the Navier–Stokes step calls
+them, likewise (K6 three reads and one write a point, K5 three and six).
 Every time is taken with CUDA events around calls all issued behind a spin
 kernel (``cuda_time_ms(..., queued=True)``: the kernel plus its launch, no
 host time). Prints the card's name and power limit, then one JSON line;
-exits non-zero without a card.
+exits non-zero without a card. Arguments name the groups to time, of
+``compact_lane`` (K1), ``lap_rhs``, ``adv_pair``, ``div_rhs`` and
+``adv_lap3``; none times them all:
+
+    python3 lane_times.py div_rhs adv_lap3
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import torch
 sys.path.insert(0, ".")  # the checkout being timed, not this script's
 
 import cfd_tpu_torch as ct  # noqa: E402
-from cfd_tpu_torch.ops import adv_lap, dense, lane, pair  # noqa: E402
+from cfd_tpu_torch.ops import adv_lap, dense, lane, pair, vec  # noqa: E402
 from cfd_tpu_torch.utils.timing import HBM_BYTES_PER_S, cuda_time_ms  # noqa: E402
 
 # the profiler helper of this script's own checkout (the timed one may
@@ -63,17 +72,18 @@ CASES = (  # (shape, schemes)
                                                                      (512, 512, 63))),
 )
 XY_SHAPES = ((64, 128, 8192), (256, 256, 256), (64, 128, 8191), (42, 128, 12278))
+XY_CASES = {  # kernel: shapes, in the order they are timed
+    "lap_rhs": XY_SHAPES,
+    "adv_pair": XY_SHAPES,
+    "div_rhs": ((64, 128, 8192), (256, 256, 256), (42, 128, 12278)),
+    "adv_lap3": ((256, 256, 256),),
+}
+# least bytes a point: K9 1 read and 1 write, K13 and K6 3 and 1, K5 3 and 6
+XY_BYTES = {"lap_rhs": 8, "adv_pair": 16, "div_rhs": 16, "adv_lap3": 36}
+GROUPS = ("compact_lane", *XY_CASES)
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("lane_times.py times the card; no CUDA device here")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip(), flush=True)
-    dev = torch.device("cuda", 0)
-    g = torch.Generator(device=dev).manual_seed(20261017)
-    res = {}
+def _lane_times(g, dev, res) -> None:
     for shape, schemes in CASES:
         f = torch.randn(shape, generator=g, device=dev)
         n = shape[-1]
@@ -88,20 +98,44 @@ def main() -> None:
                 "bound_ms": 8 * f.numel() / HBM_BYTES_PER_S * 1e3,
             }
             del M
+
+
+def _xy_times(g, dev, res, names) -> None:
     s1, s2 = ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC
-    for shape in XY_SHAPES:
-        f, ux, uy = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
-        d = 2 * math.pi / 128
-        key = "x".join(map(str, shape))
-        for name, fn, nbytes in (
-                ("lap_rhs", lambda: adv_lap.lap_rhs(f, d, d, d, s2), 8),
-                ("adv_pair", lambda: pair.advection_pair(f, ux, uy, d, d, s1), 16)):
-            res[f"{name} {key}"] = {
+    d = 2 * math.pi / 128
+    for name, shapes in XY_CASES.items():
+        if name not in names:
+            continue
+        for shape in shapes:
+            f, ux, uy = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+            fn = {"lap_rhs": lambda: adv_lap.lap_rhs(f, d, d, d, s2),
+                  "adv_pair": lambda: pair.advection_pair(f, ux, uy, d, d, s1),
+                  "div_rhs": lambda: vec.div_rhs(f, ux, uy, d, d, d, s1),
+                  "adv_lap3": lambda: adv_lap.adv_lap_rhs3((f, ux, uy), d, d, d, s1, s2)}[name]
+            res[f"{name} {'x'.join(map(str, shape))}"] = {
                 "kernel_ms": cuda_time_ms(fn, queued=True),
-                "bound_ms": nbytes * f.numel() / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": XY_BYTES[name] * f.numel() / HBM_BYTES_PER_S * 1e3,
                 "phases_ms": _profiling.kernel_ms_by_name(fn),
             }
-        del f, ux, uy
+            del f, ux, uy
+
+
+def main(argv=None) -> None:
+    names = (argv if argv is not None else sys.argv[1:]) or GROUPS
+    unknown = set(names) - set(GROUPS)
+    if unknown:
+        raise SystemExit(f"lane_times.py: unknown groups {sorted(unknown)}; take {GROUPS}")
+    if not torch.cuda.is_available():
+        raise SystemExit("lane_times.py times the card; no CUDA device here")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(20261017)
+    res = {}
+    if "compact_lane" in names:
+        _lane_times(g, dev, res)
+    _xy_times(g, dev, res, names)
     print(json.dumps(res), flush=True)
 
 

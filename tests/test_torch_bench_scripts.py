@@ -132,6 +132,29 @@ def test_device_op_time_ms_on_cpu_has_no_timeline():
         (math.inf, math.inf, 0)
 
 
+def test_timeline_ms_takes_the_event_clock_after_incomplete_captures(monkeypatch):
+    """Where the profiler returns fewer complete captures than asked, after
+    twice as many tries, the case is timed with queued CUDA events
+    (``utils.time_ms``) and its clock says so; it does not fail."""
+    import cfd_tpu_torch.benchmarks as bench
+
+    tries, timed = [], []
+    monkeypatch.setattr(bench, "device_op_time_ms",
+                        lambda fn, x, iters: tries.append(iters) or (math.inf, math.inf, 0))
+    monkeypatch.setattr(bench, "time_ms", lambda fn, dev: timed.append(dev) or 0.25)
+
+    class OnCard:  # the wrapper reads only the tensor's device here
+        device = torch.device("cuda", 0)
+
+    ms, floor_ms, clock = bench.timeline_ms(lambda x: x, OnCard(), captures=3)
+    assert tries == [8] * 6 and timed == [OnCard.device] * 2
+    assert (ms, floor_ms) == (0.25, 0.25)
+    assert clock.startswith("cuda events, queued") and "0 of 3" in clock
+    # complete captures keep the device timeline
+    monkeypatch.setattr(bench, "device_op_time_ms", lambda fn, x, iters: (0.5, 0.1, iters))
+    assert bench.timeline_ms(lambda x: x, OnCard(), captures=3) == (0.5, 0.1, "device timeline")
+
+
 def test_trace_writes_a_chrome_trace(tmp_path):
     from cfd_tpu_torch.utils import trace
 

@@ -418,6 +418,13 @@ def test_pair_subtract_kernel_matches_plain(cuda, scheme, shape):
         assert _rel_err(g_, r_) <= F32_GATE
 
 
+# K5 against K3 on the same component, relative to max|K3|: at most 2.4e-7
+# on an H100 at (40, 96, 200) and 256^3 (chip_smoke.py's adv_lap3
+# "max_rel_gap"), so four times that, and a tenth of the gate against plain
+# float64 that both kernels meet
+K5_K3_GAP = 1e-6
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(6, 40, 128), (40, 96, 200), (5, 7, 9)])
 @pytest.mark.parametrize("schemes", FUSED, ids=FUSED_IDS)
@@ -433,9 +440,12 @@ def test_adv_lap3_kernel_matches_plain_and_k3(cuda, schemes, shape):
     for i in range(3):
         assert _rel_err(axy[i], ref[0][i]) <= F32_GATE
         assert _rel_err(r[i], ref[1][i]) <= F32_GATE
-        # the same arithmetic as K3 on the same component: bit for bit
+        # K3 on the same component: the same y phase, and an x phase in
+        # sub-block chains where K3's runs one thread a line, so the two
+        # differ only by the float32 roundings of the two solve orders
         a1, r1 = adv_lap.adv_lap_rhs(u[i], u[0], u[1], 0.03, 0.02, 0.01, s1, s2)
-        assert torch.equal(axy[i], a1) and torch.equal(r[i], r1)
+        assert _rel_err(axy[i], a1.double()) <= K5_K3_GAP
+        assert _rel_err(r[i], r1.double()) <= K5_K3_GAP
 
 
 @pytest.mark.gpu
@@ -703,6 +713,75 @@ def test_advection_pair_chained_x_phase_matches_plain(cuda, scheme, shape):
     assert pair.ADV_PAIR_LAUNCHES == before + 1
     ref = pair.advection_pair_ref(f.double(), ux.double(), uy.double(), 0.05, 0.04, scheme)
     assert _rel_err(got, ref) <= F32_GATE
+
+
+# K6 on K9's chained launch, at K9's shapes; K5 on the paired chained
+# launch: x-lines of 256 (8 chains, 16 lines of two families a block), 512,
+# 257 (one chain) and 6134 (two chains of 3067 rows, one line of two
+# families a block in opted-in shared memory), and the NS step's 256^3
+XY_CHAIN_K5 = [(5, 8, 256), (5, 16, 512), (5, 8, 257), (5, 8, 6134), (256, 256, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", XY_CHAIN_K9,
+                         ids=[f"{s}-nb{lane.line_nb(s[-1])}" for s in XY_CHAIN_K9])
+@pytest.mark.parametrize("scheme", [ct.SCHEME4_PERIODIC, ct.SCHEME6_PERIODIC], ids=FUSED_IDS)
+def test_div_rhs_chained_x_phase_matches_plain(cuda, scheme, shape):
+    g = torch.Generator(device="cpu").manual_seed(23)
+    u = tuple(torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    before = vec.LAUNCHES
+    got = vec.div_rhs(*u, 0.04, 0.03, 0.02, scheme)
+    torch.cuda.synchronize()
+    assert vec.LAUNCHES == before + 1
+    ref = vec.div_rhs_ref(*(c.double() for c in u), 0.04, 0.03, 0.02, scheme)
+    assert _rel_err(got, ref) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", XY_CHAIN_K5,
+                         ids=[f"{s}-nb{lane.line_nb(s[-1])}" for s in XY_CHAIN_K5])
+@pytest.mark.parametrize("schemes", FUSED + [(ct.SCHEME4, ct.SCHEME4_D2_PERIODIC)],
+                         ids=FUSED_IDS + ["pade4_walls"])
+def test_adv_lap3_paired_chained_x_phase_matches_plain(cuda, schemes, shape):
+    s1, s2 = schemes
+    g = torch.Generator(device="cpu").manual_seed(24)
+    u = tuple(torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    before = adv_lap.LAUNCHES3
+    axy, r = adv_lap.adv_lap_rhs3(u, 0.03, 0.02, 0.01, s1, s2)
+    torch.cuda.synchronize()
+    assert adv_lap.LAUNCHES3 == before + 1
+    ref = adv_lap.adv_lap_rhs3_ref(tuple(c.double() for c in u), 0.03, 0.02, 0.01, s1, s2)
+    for got, want in zip(axy + r, ref[0] + ref[1]):
+        assert _rel_err(got, want) <= F32_GATE
+
+
+@pytest.mark.gpu
+def test_divergence_past_the_x_limit_is_the_three_derivative_sum(cuda):
+    """nx = 12290 passes ``vec.div_fused_supported`` (an x-line within an x
+    block's 48 KB), as the JAX routing has it: ``divergence`` returns the
+    sum of three derivatives and launches no K6."""
+    g = torch.Generator(device="cpu").manual_seed(25)
+    u = tuple(torch.randn((5, 8, 12290), generator=g).to(cuda) for _ in range(3))
+    spacing = (0.04, 0.03, 0.02)
+    assert not vec.div_fused_supported(ct.SCHEME4_PERIODIC, *u[0].shape, torch.float32)
+    before = vec.LAUNCHES
+    got = ct.divergence(u, spacing, ct.SCHEME4_PERIODIC)
+    torch.cuda.synchronize()
+    assert vec.LAUNCHES == before
+    ref = ct.divergence(tuple(c.double() for c in u), spacing, ct.SCHEME4_PERIODIC,
+                        method="matmul")
+    assert _rel_err(got, ref) <= F32_GATE
+
+
+@pytest.mark.gpu
+def test_chained_div_rhs_and_adv_lap3_reject_lines_past_their_shared_memory(cuda):
+    """A prime line (one chain) of 65537 points passes one opted-in block:
+    K6 stages one tile of it (262 KB), K5 two."""
+    f = torch.zeros((5, 8, 65537), device=cuda)
+    with pytest.raises(RuntimeError, match="div_rhs launch failed"):
+        vec.div_rhs(f, f, f, 0.1, 0.1, 0.1, ct.SCHEME4_PERIODIC)
+    with pytest.raises(RuntimeError, match="adv_lap3 launch failed"):
+        adv_lap.adv_lap_rhs3((f, f, f), 0.1, 0.1, 0.1, *FUSED[0])
 
 
 @pytest.mark.gpu

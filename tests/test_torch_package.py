@@ -69,11 +69,16 @@ def test_chip_smoke_imports_no_jax():
             assert "jax" not in words and "cfd_tpu" not in words, line
 
 
+# the port's measurement scripts at the root of the repository
+PORT_SCRIPTS = ("chip_smoke.py", "lane_times.py", "dist_kernel_times.py")
+
+
 def test_no_module_of_the_port_imports_jax_or_cfd_tpu():
-    """No line of any module of the port imports jax or the JAX package,
-    not even inside a function (the import test above sees only what an
-    import loads)."""
-    for path in sorted((ROOT / "cfd_tpu_torch").rglob("*.py")):
+    """No line of any module of the port, or of its measurement scripts,
+    imports jax or the JAX package, not even inside a function (the import
+    test above sees only what an import loads)."""
+    paths = [*(ROOT / "cfd_tpu_torch").rglob("*.py"), *(ROOT / p for p in PORT_SCRIPTS)]
+    for path in sorted(paths):
         for line in path.read_text().splitlines():
             words = line.replace(".", " ").split()
             if words[:1] in (["import"], ["from"]):

@@ -25,9 +25,10 @@ It must equal the plain versions ``adv_lap.lap_rhs_ref`` and
 257 (one chain) and 12278 (14 chains of 877 rows; one line a block in
 opted-in shared memory): for K9 SCHEME4_D2_PERIODIC and
 SCHEME6_D2_PERIODIC, for K13 SCHEME4, SCHEME4_PERIODIC and SCHEME6. At
-x-lines past 1024 points the plain versions take their x derivative as the
-banded solve of the same compact system (their dense x operator is half a
-GB at 8192 and takes minutes to build). Planes and y-lines are the fewest
+x-lines past 1024 points the float64 plain versions take their x
+derivative as the banded solve of the same compact system
+(``dense.dense_derivative``; their dense x operator is half a GB at 8192
+and takes minutes to build), held here against the dense operator. Planes and y-lines are the fewest
 the schemes take (nz >= 5 for K9's z stencil, ny >= 6 for SCHEME6).
 
 Both plain versions are held against ``cfd_tpu``'s Pallas kernels in
@@ -44,9 +45,7 @@ import pytest
 import torch
 
 import cfd_tpu_torch as ct
-from cfd_tpu_torch.ops import adv_lap, dense, lane, pair, tridiag
-from cfd_tpu_torch.ops.rhs import compact_rhs
-from cfd_tpu_torch.schemes import lhs_bands
+from cfd_tpu_torch.ops import adv_lap, dense, lane, pair
 from test_torch_lane_chains import DX, _chains
 
 K9_SCHEMES = {"SCHEME4_D2_PERIODIC": ct.SCHEME4_D2_PERIODIC,
@@ -58,7 +57,6 @@ K9_SHAPES = [(5, 8, 8192), (5, 16, 512), (5, 8, 256), (5, 8, 257), (5, 8, 12278)
 DZ, DY = 0.07, 0.03  # DX (0.05) is the chain transcription's
 F64_TOL = 1e-10
 F32_GATE = 1e-5  # the kernels' float32 gate, relative to max|ref|
-DENSE_MAX = 1024  # longest x-line the plain versions take through the dense operator here
 
 CHAIN_THREADS = 256  # XY_CHAIN_THREADS
 STAGERS = 128  # XY_CHAIN_STAGERS
@@ -83,12 +81,12 @@ def _threads(chains):
     return chains + (-(-(STAGERS - chains) // 32) * 32 if chains < STAGERS else 0)
 
 
-def _walk(count, n, nb, L):
-    """``walk_chains`` for a block of L lines: (e, at, l) of every element
-    below ``count``, each of the block's threads' (i, k, l) moved on without
-    a division."""
-    bz, T = n // nb, _threads(L * nb)
-    cs = (L * nb) | 1
+def _walk(count, n, nb, L, tiles=1):
+    """``walk_chains`` for a block of L lines (of ``tiles`` families): (e,
+    at, l) of every element below ``count``, each of the block's threads'
+    (i, k, l) moved on without a division."""
+    bz, T = n // nb, _threads(tiles * L * nb)
+    cs = (tiles * L * nb) | 1
     dl, rem = divmod(T, n)
     dk, di = divmod(rem, bz)
     t = np.arange(T)
@@ -116,12 +114,13 @@ def _walk(count, n, nb, L):
 
 
 @functools.lru_cache(maxsize=None)
-def _check_walk(count, n, nb, L):
+def _check_walk(count, n, nb, L, tiles=1):
     """The walk equals the direct index map and is a bijection of the
     block's elements onto its tile's chain slots of the lines it holds
-    (checked once a block shape)."""
-    e, at, l = _walk(count, n, nb, L)
-    bz, cs = n // nb, (L * nb) | 1
+    (the first family's, where ``tiles`` families share the tile; checked
+    once a block shape)."""
+    e, at, l = _walk(count, n, nb, L, tiles)
+    bz, cs = n // nb, (tiles * L * nb) | 1
     assert np.array_equal(np.sort(e), np.arange(count))
     ll, r = np.divmod(e, n)
     kk, ii = np.divmod(r, bz)
@@ -192,30 +191,6 @@ def k13_chained(f, ux, uy, dy, scheme, dtype):
     return out
 
 
-def _banded_x(dense_derivative, longest=DENSE_MAX):
-    """``dense_derivative``, but along x-lines past ``longest`` points the
-    banded solve of the same compact system, float64."""
-    def derivative(f, dx, scheme, axis):
-        n = f.shape[-1]
-        if axis % f.ndim != f.ndim - 1 or n <= longest:
-            return dense_derivative(f, dx, scheme, axis)
-        dl, d, du = lhs_bands(scheme, n)
-        if scheme.periodic:
-            factors = tridiag.cyclic_factor(dl, d, du, scheme.alpha, scheme.alpha)
-        else:
-            factors = tridiag.thomas_factor(dl, d, du)
-        rhs = compact_rhs(f.reshape(-1, n).T.contiguous(), dx, scheme)
-        return tridiag.solve(factors, rhs, 0).T.reshape(f.shape)
-    return derivative
-
-
-@pytest.fixture
-def plain(monkeypatch):
-    """The plain versions, with long x-lines through the banded solve."""
-    monkeypatch.setattr(adv_lap, "dense_derivative", _banded_x(adv_lap.dense_derivative))
-    monkeypatch.setattr(pair, "dense_derivative", _banded_x(pair.dense_derivative))
-
-
 def _fields(shape, count, seed):
     rng = np.random.default_rng(seed)
     return [rng.standard_normal(shape) + 0.5 for _ in range(count)]
@@ -227,11 +202,15 @@ def _rel(got, ref):
 
 
 def test_banded_x_equals_the_dense_operator():
-    f = torch.from_numpy(_fields((3, 4, 256), 1, 1)[0])
-    banded = _banded_x(None, longest=0)
-    for scheme in (*K9_SCHEMES.values(), *K13_SCHEMES.values()):
-        want = dense.dense_derivative(f, DX, scheme, -1)
-        assert _rel(banded(f, DX, scheme, -1), want) <= F64_TOL
+    """``dense.dense_derivative`` in float64 past ``BANDED_PAST`` points
+    (the banded solve) against the dense operator's product."""
+    n = dense.BANDED_PAST + 1
+    f = torch.from_numpy(_fields((3, 4, n), 1, 1)[0])
+    filters = [ct.get_filter(order, 0.45, periodic) for order in (4, 6) for periodic in (0, 1)]
+    for scheme in (*K9_SCHEMES.values(), *K13_SCHEMES.values(), ct.SCHEME4_D2, ct.SCHEME6_D2,
+                   *filters):
+        want = dense.dense_apply("derivative", f, scheme, -1, DX ** scheme.derivative_order)
+        assert _rel(dense.dense_derivative(f, DX, scheme, -1), want) <= F64_TOL
 
 
 def test_lines_per_block():
@@ -247,7 +226,7 @@ def test_lines_per_block():
 
 @pytest.mark.parametrize("shape", K9_SHAPES, ids=[f"{s}" for s in K9_SHAPES])
 @pytest.mark.parametrize("name", K9_SCHEMES)
-def test_lap_rhs_chained_x_phase(name, shape, plain):
+def test_lap_rhs_chained_x_phase(name, shape):
     scheme = K9_SCHEMES[name]
     (f,) = _fields(shape, 1, seed=shape[-1] + len(name))
     ref = adv_lap.lap_rhs_ref(torch.from_numpy(f), DZ, DY, DX, scheme).numpy()
@@ -257,7 +236,7 @@ def test_lap_rhs_chained_x_phase(name, shape, plain):
 
 @pytest.mark.parametrize("shape", K13_SHAPES, ids=[f"{s}" for s in K13_SHAPES])
 @pytest.mark.parametrize("name", K13_SCHEMES)
-def test_advection_pair_chained_x_phase(name, shape, plain):
+def test_advection_pair_chained_x_phase(name, shape):
     scheme = K13_SCHEMES[name]
     f, ux, uy = _fields(shape, 3, seed=shape[-1] + 2 * len(name))
     ref = pair.advection_pair_ref(*map(torch.from_numpy, (f, ux, uy)), DY, DX, scheme).numpy()
@@ -298,9 +277,6 @@ def test_advection_pair_ref_matches_pallas_interpret_on_512_point_lines(name):
 
 if __name__ == "__main__":
     # each case's float32 error, relative to max|ref| (gate 1e-5)
-    mp = pytest.MonkeyPatch()
-    mp.setattr(adv_lap, "dense_derivative", _banded_x(adv_lap.dense_derivative))
-    mp.setattr(pair, "dense_derivative", _banded_x(pair.dense_derivative))
     for name, scheme in K9_SCHEMES.items():
         for shape in K9_SHAPES:
             (f,) = _fields(shape, 1, seed=shape[-1] + len(name))
