@@ -33,10 +33,10 @@
 // scheme's chain table (closure rows included, for a non-periodic d1), the
 // Laplacian's on the periodic d2 scheme's, one thread a chain, and the
 // block adds u0 D1x u_i into axy_i and D2x h_i into r_i, coalesced. Where
-// one thread walked each staged line (the form this replaced, which K3
-// keeps), a block at nx = 256 had 64 of its 128 threads busy; a line past
-// 48 KB a block (nx = 6134: two chains of 3067 rows) opts into the larger
-// shared memory.
+// one thread walked each staged line (the form this replaced), a block at
+// nx = 256 had 64 of its 128 threads busy; a line past 48 KB a block (nx =
+// 6134: two chains of 3067 rows) opts into the larger shared memory. K3
+// (adv_lap.cu) is this launch for one field.
 
 #include "xy_phase.cuh"
 

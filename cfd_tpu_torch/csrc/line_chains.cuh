@@ -1,10 +1,11 @@
 // A whole line cut into sub-block Thomas chains (K1, compact_lane.cu, on
-// lines of every length; the x phases of K9, lap_rhs.cu, and K13,
-// adv_pair.cu, in xy_phase.cuh's xy_chain_x_kernel): the chain layout of a
-// block's lines in shared memory and the table a chain reads, for
-// dist_common.cuh's solve_chain. Any kernel that stages x-lines can run
-// them (the other x phases of xy_phase.cuh, and K7's, stage the same lines
-// and still solve each with one thread).
+// lines of every length; the x phases of K3, K5, K6, K9 and K13 in
+// xy_phase.cuh's xy_chain_x_kernel; K4's z-lines, rk3_mega.cu, in a layout
+// of its own): the chain layout of a block's lines in shared memory and the
+// table a chain reads, for dist_common.cuh's solve_chain. Any kernel that
+// stages whole lines can run them (the weighted x phase of xy_phase.cuh,
+// K8's and K10's, and K7's stage the same lines and still solve each with
+// one thread).
 //
 // A line of n points is cut into nb sub-blocks of bz = n / nb rows; chain
 // k runs rows s = k bz .. e = s + bz - 1. A periodic line is one ring: the

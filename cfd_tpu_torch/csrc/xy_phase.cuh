@@ -26,12 +26,11 @@
 //   K13 axy = ux Dx f + uy Dy f          (advection alone: no z work at all)
 //
 // A launch is of the first two kinds (`weighted` = 0), weighted throughout,
-// or, unpaired, advection throughout. The weighted kind has an x kernel of
-// its own. The z-RHS launches of K6 and K9, the advection-only launch of
-// K13 and the paired launch of K5 run the chained x phase (below), which
-// takes any line an opted-in block holds; only K3's paired launch (two
-// staged lines, nx <= 6134) and the weighted launches of K8 and K10 still
-// run an x phase of one thread a line.
+// or, unpaired, advection throughout. The z-RHS launches of K6 and K9, the
+// advection-only launch of K13 and the paired launches of K3 and K5 run the
+// chained x phase (below), which takes any line an opted-in block holds;
+// only the weighted launches of K8 and K10 (`xy_launch`) still run an x
+// phase of one thread a line.
 //
 // A 256^2 plane (256 KB) does not fit one block's 227 KB of shared memory,
 // so a launch is two kernels on one stream:
@@ -42,22 +41,21 @@
 //    it reads. The forward sweep keeps its values in `out`, and the
 //    backward sweep stores my * Dy sy, or Dy (T_z sy) + B_z bz, there.
 // 2. x phase, in one of two forms:
-//    - one thread a line (K3; K8 and K10 weighted: `xy_launch`): a block
-//      stages consecutive x-lines of a z-RHS family's T_z sx (formed from
-//      three planes) and of the advection family's sx over the same field,
-//      in shared memory with coalesced loads, from one read of sx; a warp
-//      per family solves them in place, one thread a line; the block adds
-//      them, times mx for advection, into the outputs, coalesced. At nx =
-//      8192 that would be one busy thread a block.
-//    - sub-block chains (K6, K9, K13 and K5: `xy_chain_launch`, with the
+//    - one thread a line (K8 and K10, weighted: `xy_launch`): a block
+//      stages consecutive x-lines of a family's Z sx in shared memory with
+//      coalesced loads; a warp solves them in place, one thread a line; the
+//      block adds wx times them into the output, coalesced. At nx = 8192
+//      that would be one busy thread a block.
+//    - sub-block chains (K6, K9, K13, K3 and K5: `xy_chain_launch`, with the
 //      chain tables of ops/lane.py `chain_table` in XYArgs, `nb` > 0): as
 //      K1 does (compact_lane.cu, line_chains.cuh), a block stages L lines
 //      of T_z sx (K6, K9, formed from three planes with each line's TzRow,
 //      made once a line), of sx (K13, with cp.async), or of both from one
-//      read of sx (K5's pairs) into the chain layout, cuts each line into
-//      nb sub-blocks of >= 32 rows (ops/lane.py `line_nb`) and runs their
-//      Thomas chains one a thread, L nb threads a block a family; then adds
-//      them, times mx for advection, into the outputs, coalesced.
+//      read of sx (the pairs of K3 and K5) into the chain layout, cuts each
+//      line into nb sub-blocks of >= 32 rows (ops/lane.py `line_nb`) and
+//      runs their Thomas chains one a thread, L nb threads a block a
+//      family; then adds them, times mx for advection, into the outputs,
+//      coalesced.
 //
 // Families (x: pairs of them) sit on the grid's y axis, so the branch on a
 // family's kind is uniform in a block, and each kind's body is compiled
@@ -91,8 +89,8 @@ namespace {
 #define XY_MAX_FAMILIES 6
 #define XY_Z_TAPS (2 * CFD_MAX_K + 1)
 #define XY_Y_THREADS 128         // y phase: columns per block
-#define XY_X_THREADS 128         // x phase: >= 32 + the lines a block stages
-#define XY_X_LINES 32            // x phase: lines per block, halved to fit
+#define XY_X_THREADS 128         // weighted x phase: threads a block, >= the lines it stages
+#define XY_X_LINES 32            // weighted x phase: lines per block, halved to fit
 #define XY_X_SMEM (48 * 1024)    // x phase: bytes a block stages without opting in
 #define XY_CHAIN_THREADS 256     // chained x phase: the most chains a block runs
 #define XY_CHAIN_STAGERS 128     // chained x phase: the fewest threads a block stages with
@@ -124,7 +122,7 @@ struct XYArgs {
   ZTab zt;
   int nfam;
   int paired;  // 1: families 2g and 2g + 1 are an advection and a z-RHS family
-               // over the same sx; 0: every family is a z-RHS family
+               // over the same sx (K3, K5); 0: every family is a z-RHS family
   int weighted;                  // 1: every family is weighted (paired = 0)
   int xfam[XY_MAX_FAMILIES];     // weighted: the families with an x term
   int nxfam;                     //   (set by xy_launch)
@@ -233,54 +231,6 @@ __global__ void __launch_bounds__(XY_Y_THREADS, 8) xy_y_kernel(const __grid_cons
   }
 }
 
-// The paired one-thread-a-line x phase (K3). A block stages consecutive
-// x-lines of one pair's field, an advection family 2g and a z-RHS family
-// 2g + 1 over the same sx: T_z sx for the z-RHS family and sx itself for
-// the advection family, both from one read of sx. Warp 0 solves the z-RHS
-// lines, warp 1 the advection lines, in place.
-__global__ void xy_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
-  extern __shared__ float tile[];
-  const XYFamily& R = a.fam[2 * blockIdx.y + 1];
-  const XYFamily& A = a.fam[2 * blockIdx.y];
-  const int n = a.cx[0].n;
-  const int ld = cfd_line_ld(n);
-  const long long lines = (long long)a.zt.nz * a.cy[0].n;
-  const long long plane = (long long)a.cy[0].n * n;
-  const long long line0 = (long long)blockIdx.x * lines_per_block;
-  const long long rest = lines - line0;
-  const int nl = rest < lines_per_block ? (int)rest : lines_per_block;
-  const int count = nl * n;
-  const long long e_base = line0 * n;
-  float* tr = tile;                            // T_z sx lines, then their Dx
-  float* ta = tile + lines_per_block * ld;     // sx lines, then their Dx
-
-  float* const tiles[2] = {tr, ta};
-  stage_lines(tiles, count, n, [&](int e, float* v) {
-    const long long g = e_base + e;
-    v[1] = __ldg(R.sx + g);
-    v[0] = TzRow(a.zt, g / plane, plane).at(R.sx, g, v[1]);
-  });
-  __syncthreads();
-
-  const int t = threadIdx.x;
-  if (t < nl || (t >= 32 && t - 32 < nl)) {
-    const bool adv = t >= 32;  // warp 1: no divergence in a warp
-    const XYFamily& F = adv ? A : R;
-    float* line = (adv ? ta : tr) + (adv ? t - 32 : t) * ld;
-    wrap_line(line, n);
-    solve_line(a.cx[F.d2], a.tabx[F.d2], [&](int m) { return line[m]; }, line, 1);
-  }
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < count; e += blockDim.x) {
-    const int l = e / n;
-    const int s = l * ld + (e - l * n);
-    const long long g = e_base + e;
-    R.out[g] += tr[s];
-    A.out[g] += __ldg(A.mx + g) * ta[s];
-  }
-}
-
 // A weighted family's column of the y phase: out = wy Dy (Z sy) + wb B_z bz,
 // Z = T_z with TZ, else the identity (and no B_z term).
 template <bool TZ>
@@ -381,7 +331,8 @@ __global__ void xyw_x_kernel(const __grid_constant__ XYArgs a, int lines_per_blo
 
 // The launch's tables: scheme 0 along y and x (c0y, c0x with their per-point
 // tables), scheme 1 likewise (may repeat scheme 0), and the z tables of the
-// scheme whose T_z and B_z the families use.
+// scheme whose T_z and B_z the families use (the chained launches pass no
+// x tables: their chain tables come from xy_chain_table).
 __host__ inline XYArgs xy_args(const float* tab0y, const float* tab1y, const float* tab0x,
                                const float* tab1x, const Coef* c0y, const Coef* c1y,
                                const Coef* c0x, const Coef* c1x, const float* bt,
@@ -461,36 +412,22 @@ __host__ inline cudaError_t xy_y_launch(const XYArgs& a, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// Both phases of `a` on `stream`, the x phase one thread a line: K3's
-// paired launch, and the weighted launches of K8 and K10. Families, line
-// lengths or a z width the kernels do not take, x lines past 48 KB, a chain
-// table (nb != 0) and any other launch (xy_chain_launch takes those)
-// return cudaErrorInvalidValue.
+// Both phases of a weighted launch `a` on `stream` (K8, K10), the x phase
+// one thread a line. Families, line lengths or a z width the kernels do
+// not take, x lines past 48 KB, and any launch that is not weighted
+// (xy_chain_launch takes those) return cudaErrorInvalidValue.
 __host__ inline int xy_launch(const XYArgs& a, void* stream) {
-  if (!xy_valid(a) || a.nb != 0 || !(a.paired || a.weighted)) return (int)cudaErrorInvalidValue;
-  const int ny = a.cy[0].n, nx = a.cx[0].n;
-  if (a.weighted) {
-    if ((size_t)cfd_line_ld(nx) * sizeof(float) > XY_X_SMEM) return (int)cudaErrorInvalidValue;
-    return xyw_launch(a, (cudaStream_t)stream);
+  if (!xy_valid(a) || a.nb != 0 || !a.weighted) return (int)cudaErrorInvalidValue;
+  if ((size_t)cfd_line_ld(a.cx[0].n) * sizeof(float) > XY_X_SMEM) {
+    return (int)cudaErrorInvalidValue;
   }
-  const size_t line_bytes = (size_t)cfd_line_ld(nx) * sizeof(float);
-  if (2 * line_bytes > XY_X_SMEM) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = xy_y_launch(a, s);
-  if (err != cudaSuccess) return (int)err;
-
-  int per_block = XY_X_LINES;
-  while (per_block > 1 && 2 * per_block * line_bytes > XY_X_SMEM) per_block /= 2;
-  const long long lines = (long long)a.zt.nz * ny;
-  const dim3 xgrid((unsigned)((lines + per_block - 1) / per_block), a.nfam / 2);
-  xy_x_kernel<<<xgrid, XY_X_THREADS, 2 * per_block * line_bytes, s>>>(a, per_block);
-  return (int)cudaGetLastError();
+  return xyw_launch(a, (cudaStream_t)stream);
 }
 
 // The chained x phase, of one of three kinds (xy_chain_launch<KIND>):
 // unpaired z-RHS families (XY_RHS: K6, K9), advection families (XY_ADV:
 // K13), or pairs of an advection family 2g on scheme 0 and a z-RHS family
-// 2g + 1 on scheme 1 over the same sx (XY_PAIR: K5). A block runs
+// 2g + 1 on scheme 1 over the same sx (XY_PAIR: K3, K5). A block runs
 // `lines_per_block` = L lines of one family (one pair), nb chains a line,
 // one thread a chain (line_chains.cuh, as compact_lane.cu's kernel). The
 // shared memory holds, where a z-RHS family is staged, the L lines' T_z
@@ -619,7 +556,7 @@ __host__ inline bool xy_chain_kind(const XYArgs& a) {
 }
 
 // Both phases of `a` on `stream`, the x phase in sub-block chains, of the
-// kind KIND (above): K6 and K9 (XY_RHS), K13 (XY_ADV), K5 (XY_PAIR).
+// kind KIND (above): K6 and K9 (XY_RHS), K13 (XY_ADV), K3 and K5 (XY_PAIR).
 // `a.chx[s]`, `a.h[s]` and `a.win[s]` (xy_chain_table) describe the chain
 // table along x of each scheme s the families use, for `a.nb` sub-blocks a
 // line (a divisor of nx; at most XY_CHAIN_THREADS chains a line in all). A

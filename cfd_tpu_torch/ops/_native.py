@@ -151,7 +151,7 @@ def library() -> ctypes.CDLL:
     f32 = ctypes.c_float
     lib.cfd_strided_rk.argtypes = [p] * 7 + [coef] + [f32] * 4 + [i64, i64, p]
     lib.cfd_strided_rk.restype = i32
-    lib.cfd_adv_lap.argtypes = [p] * 11 + [coef] * 4 + [i32, i32, p]
+    lib.cfd_adv_lap.argtypes = [p] * 11 + [coef] * 4 + [i32] * 7 + [p]
     lib.cfd_adv_lap.restype = i32
     lib.cfd_adv_lap3.argtypes = [p] * 15 + [coef] * 4 + [i32] * 7 + [p]
     lib.cfd_adv_lap3.restype = i32
@@ -165,8 +165,10 @@ def library() -> ctypes.CDLL:
     lib.cfd_lap_rhs.restype = i32
     lib.cfd_curl_rhs.argtypes = [p] * 10 + [coef] * 2 + [i32, i32, p]
     lib.cfd_curl_rhs.restype = i32
-    lib.cfd_rk3_mega.argtypes = [p] * 9 + [coef, coef, f32, f32, f32, f32, i32, i64, p]
+    lib.cfd_rk3_mega.argtypes = [p] * 9 + [coef, coef] + [f32] * 4 + [i32, i64] + [i32] * 5 + [p]
     lib.cfd_rk3_mega.restype = i32
+    lib.cfd_rk3_mega_smem_limit.argtypes = [ctypes.POINTER(i32)]
+    lib.cfd_rk3_mega_smem_limit.restype = i32
     lib.cfd_lane_dist.argtypes = [p] * 6 + [coef, i64, i32, i32, i32, p]
     lib.cfd_lane_dist.restype = i32
     lib.cfd_strided_dist.argtypes = [p] * 6 + [coef, i64, i64, i32, i32, i32, p]
@@ -200,9 +202,9 @@ def check_order(scheme: CompactScheme) -> None:
 def x_lines_fit(nx: int, tiles: int = 1) -> bool:
     """Whether ``tiles`` staged x-lines of ``nx`` floats, each with its wrap
     slots (``cfd_line_ld``), fit the shared memory an x block stages: the
-    test ``xy_launch`` (``csrc/xy_phase.cuh``: K3, K8, K10) and K7 make
-    before they launch. K3's paired launch stages two tiles, every other
-    one."""
+    test ``xy_launch`` (``csrc/xy_phase.cuh``: K8, K10) and K7 make before
+    they launch. With ``tiles=2``, the JAX package's limit for K3 and K5
+    (two staged lines), which ``adv_lap`` keeps for their chained x phase."""
     return tiles * 4 * ((nx + AHEAD + 1) | 1) <= X_BLOCK_BYTES
 
 

@@ -26,16 +26,15 @@ z stencil; the TPU's VMEM slab condition becomes the card's
 ``adv_lap_rhs3_ref`` and ``lap_rhs_ref``, the plain PyTorch versions, which
 apply the dense operators.
 
-K3 stages two x-lines per line in its x phase (f and T_z f), one thread a
-line, so it takes x-lines up to nx = 6134; ``adv_lap_fits`` says where, as
-``xy_launch`` tests it before it launches. K5's x phase stages the same two
-lines a component and solves them in K1's sub-block chains
+K3's x phase, and K5's for each component, stages two x-lines a line (f
+and T_z f) from one read of f and solves them in K1's sub-block chains
 (``csrc/line_chains.cuh``), the d1 and the d2 scheme's chain tables side
-by side, and takes longer lines; ``adv_lap3_fits`` keeps K3's limit, as
-the JAX package's routing has it. The fused substep
-(``ops/fused_step.py``) decides its head by them. K9's x phase runs the
-same chains on T_z f. The chains are those ``lane.line_nb`` cuts, on the
-chain tables ``lane`` caches for K1.
+by side: K3 is K5's launch for one field. The chained launch takes lines
+past 48 KB a block, but ``adv_lap_fits`` and ``adv_lap3_fits`` keep the
+JAX package's limit of two staged lines within 48 KB (nx <= 6134), as its
+routing has it; the fused substep (``ops/fused_step.py``) decides its head
+by them. K9's x phase runs the same chains on T_z f. The chains are those
+``lane.line_nb`` cuts, on the chain tables ``lane`` caches for K1.
 
 ``LAUNCHES``, ``LAUNCHES3`` and ``LAP_LAUNCHES`` count calls that launched
 K3, K5 and K9 (each kernel's two phases count once); nothing but the launch
@@ -115,17 +114,18 @@ def device_z_tables(scheme: CompactScheme, n: int, dz: float, device: torch.devi
 
 
 def adv_lap_fits(shape) -> bool:
-    """Whether K3's x phase takes the x-lines of (nz, ny, nx) fields: two
+    """Whether the fused substep takes K3 for (nz, ny, nx) fields: two
     staged lines (the advection and the Laplacian family's) within an x
-    block's 48 KB (``xy_launch``, ``csrc/xy_phase.cuh``): nx <= 6134."""
+    block's 48 KB, nx <= 6134, as the JAX package routes K3 by the VMEM
+    they need. K3's chained x phase also takes longer lines."""
     return _native.x_lines_fit(shape[-1], tiles=2)
 
 
 def adv_lap3_fits(shape) -> bool:
     """Whether the fused substep takes K5 for (nz, ny, nx) fields: the
-    x-lines K3 takes (``adv_lap_fits``), as the JAX package routes K5 by
-    the VMEM its two staged lines a component need. K5's chained x phase
-    also takes longer lines."""
+    x-lines the substep takes K3 for (``adv_lap_fits``), as the JAX package
+    routes K5 by the VMEM its two staged lines a component need. K5's
+    chained x phase also takes longer lines."""
     return _native.x_lines_fit(shape[-1], tiles=2)
 
 
@@ -152,20 +152,23 @@ def adv_lap_rhs_ref(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: Comp
     return axy, r
 
 
-def _xy_tables(shape, dz, dy, dx, scheme1, scheme2, dev):
-    """K3's table arguments: the four line tables, the z tables, the four
-    Coefs, nz and W."""
+def _pair_tables(shape, dz, dy, dx, scheme1, scheme2, dev):
+    """The table arguments of K3 and K5 (``cfd_adv_lap``, ``cfd_adv_lap3``):
+    the two schemes' line tables along y, their chain tables along x for
+    ``lane.line_nb(nx)`` sub-blocks, the z tables, the four Coefs, nz, W,
+    nb and each chain table's reduced window."""
     nz, ny, nx = shape
     bt, tt = device_z_tables(scheme2, nz, float(dz), dev)
     c1y, t1y = _native.launch_tables(scheme1, ny, float(dy), dev)
     c2y, t2y = _native.launch_tables(scheme2, ny, float(dy), dev)
-    c1x, t1x = _native.launch_tables(scheme1, nx, float(dx), dev)
-    c2x, t2x = _native.launch_tables(scheme2, nx, float(dx), dev)
+    nb = lane.line_nb(nx)
+    c1x, ch1, h1, win1 = lane._chain_launch_tables(scheme1, nx, nb, float(dx), dev)
+    c2x, ch2, h2, win2 = lane._chain_launch_tables(scheme2, nx, nb, float(dx), dev)
     return (
-        t1y.data_ptr(), t2y.data_ptr(), t1x.data_ptr(), t2x.data_ptr(),
+        t1y.data_ptr(), t2y.data_ptr(), ch1.data_ptr(), ch2.data_ptr(),
         bt.data_ptr(), tt.data_ptr(),
         ctypes.byref(c1y), ctypes.byref(c2y), ctypes.byref(c1x), ctypes.byref(c2x),
-        nz, scheme2.stencil_width,
+        nz, scheme2.stencil_width, nb, h1, win1, h2, win2,
     )
 
 
@@ -176,6 +179,10 @@ def adv_lap_rhs(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactS
     ``scheme1`` is the d1 scheme, ``scheme2`` a periodic d2 scheme. CUDA
     tensors must be float32 and contiguous and run the kernel; a launch
     failure raises. CPU tensors take ``adv_lap_rhs_ref``.
+
+    The kernel's x phase stages f once for both outputs and solves both in
+    sub-block chains (``csrc/adv_lap.cu``), as ``adv_lap_rhs3`` does for
+    each component.
     """
     global LAUNCHES
     _check(f, ux, uy, scheme1, scheme2)
@@ -187,7 +194,7 @@ def adv_lap_rhs(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactS
     with torch.cuda.device(f.device):
         err = _native.library().cfd_adv_lap(
             f.data_ptr(), ux.data_ptr(), uy.data_ptr(), axy.data_ptr(), r.data_ptr(),
-            *_xy_tables(f.shape, dz, dy, dx, scheme1, scheme2, f.device),
+            *_pair_tables(f.shape, dz, dy, dx, scheme1, scheme2, f.device),
             torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "adv_lap")
@@ -220,24 +227,14 @@ def adv_lap_rhs3(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
     if u0.device.type == "cpu":
         return adv_lap_rhs3_ref(u, dz, dy, dx, scheme1, scheme2)
     _native.check_operands("adv_lap3", u0, u1, u2)
-    nz, ny, nx = u0.shape
-    dev = u0.device
-    bt, tt = device_z_tables(scheme2, nz, float(dz), dev)
-    c1y, t1y = _native.launch_tables(scheme1, ny, float(dy), dev)
-    c2y, t2y = _native.launch_tables(scheme2, ny, float(dy), dev)
-    nb = lane.line_nb(nx)
-    c1x, ch1, h1, win1 = lane._chain_launch_tables(scheme1, nx, nb, float(dx), dev)
-    c2x, ch2, h2, win2 = lane._chain_launch_tables(scheme2, nx, nb, float(dx), dev)
     axy = [torch.empty_like(u0) for _ in range(3)]
     r = [torch.empty_like(u0) for _ in range(3)]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(u0.device):
         err = _native.library().cfd_adv_lap3(
             u0.data_ptr(), u1.data_ptr(), u2.data_ptr(),
             *(a.data_ptr() for a in axy), *(a.data_ptr() for a in r),
-            t1y.data_ptr(), t2y.data_ptr(), ch1.data_ptr(), ch2.data_ptr(),
-            bt.data_ptr(), tt.data_ptr(), ctypes.byref(c1y), ctypes.byref(c2y),
-            ctypes.byref(c1x), ctypes.byref(c2x), nz, scheme2.stencil_width,
-            nb, h1, win1, h2, win2, torch.cuda.current_stream().cuda_stream,
+            *_pair_tables(u0.shape, dz, dy, dx, scheme1, scheme2, u0.device),
+            torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "adv_lap3")
     LAUNCHES3 += 1

@@ -22,13 +22,16 @@ device, in the JAX package's order:
   substep returns None and the model runs its generic form;
 * tail: ``mega_tail`` (K4, ``rk3_mega``) where ``rk3_mega_supported``;
   else ``stepwise_tail``: K2 with ``mul`` and ``acc`` (``uz * fz + axy``),
-  then K2's ``rk`` mode (``rk3_solve_update``). K4 stages nothing, so on
-  the card it declines no float32 shape that a head takes.
+  then K2's ``rk`` mode (``rk3_solve_update``). K4 stages a block's
+  z-lines in shared memory, so it declines z-lines whose two tiles of one
+  column pass the card's opt-in maximum (nz past about 29,000), as the
+  JAX package's K4 declines where its VMEM does not fit.
 
 The routes decide on the host, before any launch; a kernel that then fails
 raises, and no route catches it. A CPU tensor takes the route that a
 float32 field of its shape takes on the card, through the plain versions,
-whatever its dtype. On the card a dtype other than float32 has no fused
+whatever its dtype, but for K4's shared-memory condition, which is the
+card's own (``megastep.smem_limit``) and holds only there. On the card a dtype other than float32 has no fused
 route: the substeps return None. The change of variables behind ``r`` is
 periodic-only (``pallas_lap.py``), so for a non-periodic d2 scheme the
 builders return None and the model always runs its generic form.
@@ -128,7 +131,7 @@ def stepwise_tail(f, r, axy, uz, q, scheme: CompactScheme, d2: CompactScheme, dz
 def tail_route(f, scheme: CompactScheme, d2: CompactScheme) -> Callable:
     """The tail that the substep runs on ``f``: ``mega_tail`` where K4 takes
     it, else ``stepwise_tail``."""
-    if megastep.rk3_mega_supported(scheme, d2, f.shape, _route_dtype(f)):
+    if megastep.rk3_mega_supported(scheme, d2, f.shape, _route_dtype(f), f.device):
         return mega_tail
     return stepwise_tail
 
@@ -180,7 +183,7 @@ def make_fused_substep_vec(
         u0 = u[0]
         dtype = _route_dtype(u0)
         if (u0.ndim != 3 or dtype != torch.float32 or not adv_lap.adv_lap3_fits(u0.shape)
-                or not megastep.rk3_mega_supported(scheme, d2, u0.shape, dtype)):
+                or not megastep.rk3_mega_supported(scheme, d2, u0.shape, dtype, u0.device)):
             return None
         axy, r = adv_lap.adv_lap_rhs3(tuple(u), dz, dy, dx, scheme, d2)
         qs, us = [], []

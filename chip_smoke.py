@@ -55,7 +55,12 @@ script exits non-zero without printing the final line:
               prime one (one chain) and 14 chains of 877 rows (opted-in
               shared memory); K5 (both periodic pairs) at (5, 8, 257) (one
               chain) and (5, 8, 6134) (two chains of 3067 rows, opted in):
-              its paired x phase. The float64 plain versions on lines of
+              its paired x phase; K4 (both periodic pairs and SCHEME4 with
+              SCHEME4_D2, the three substeps at dt * nu = 1) on z-lines of
+              64 (two chains), 42 and the prime 257 (one chain): its staged
+              z-tile chains; and K3 (both periodic pairs) at (16, 64, 6134):
+              its paired chained x phase in opted-in shared memory. The
+              float64 plain versions on lines of
               more than 1024 points take their x derivative from the banded
               solve of the same compact system (``dense.dense_derivative``),
               not from a dense operator. Gate:
@@ -696,6 +701,7 @@ def phase_kernels(dev) -> dict:
     _slice6_cases(stats, failures, g, dev)
     _chain_cases(stats, failures, g, dev)
     _xy_chain_cases(stats, failures, g, dev)
+    _z_chain_cases(stats, failures, g, dev)
     if failures:
         raise AssertionError("kernel vs plain over the gate: " + "; ".join(failures))
     return stats
@@ -1207,6 +1213,50 @@ def _xy_chain_cases(stats, failures, g, dev):
             del f, ux, uy, f64, ux64, uy64
 
 
+# K4's staged z-tile chains (csrc/rk3_mega.cu) on the z-lines that phase 3
+# holds nowhere else (256^3 and RAGGED are in _fused_cases): nz = 64 (two
+# chains a column), 42 and the prime 257 (one chain), for both fused pairs
+# and SCHEME4 + SCHEME4_D2 (closure rows in both families), on the first, a
+# middle and the last substep at dt * nu = 1; and K3's paired chained x
+# phase on 6134-point x-lines (two chains of 3067 rows: one line of two
+# families a block, opted in).
+Z_CHAIN_SHAPES = ((64, 64, 128), (42, 64, 128), (257, 32, 64))
+K3_LONG_X = (16, 64, 6134)
+
+
+def _z_chain_cases(stats, failures, g, dev):
+    """K4 on Z_CHAIN_SHAPES and K3 at K3_LONG_X against their plain float64
+    versions."""
+    for shape in Z_CHAIN_SHAPES:
+        dz = 2 * math.pi / shape[0]
+        f, r, axy, uz, q = (torch.randn(shape, generator=g, device=dev) for _ in range(5))
+        d64 = [t.double() for t in (f, r, axy, uz, q)]
+        for s1, s2 in FUSED_PAIRS + [(ct.SCHEME4, ct.SCHEME4_D2)]:
+            for case, qq, write_q in (("first", None, True), ("middle", q, True),
+                                      ("last", q, False)):
+                kw = dict(RK3_DIFFUSIVE, write_q=write_q)
+                label = (f"chains nb={lane.line_nb(shape[0])} {s1.name}+{s2.name} "
+                         f"{tuple(shape)} {case}")
+                got_q, got_f = megastep.rk3_mega(f, r, axy, uz, qq, s1, s2, dz, **kw)
+                ref_q, ref_f = megastep.rk3_mega_ref(
+                    *d64[:4], None if qq is None else d64[4], s1, s2, dz, **kw)
+                _compare(stats, "rk3_mega", f"f' {label}", got_f, ref_f, failures)
+                if write_q:
+                    _compare(stats, "rk3_mega", f"q' {label}", got_q, ref_q, failures)
+                elif got_q is not None:
+                    failures.append(f"rk3_mega {label}: q' returned with write_q=False")
+        del f, r, axy, uz, q, d64
+    dz, dy, dx = _spacing(K3_LONG_X)
+    f, ux, uy = (torch.randn(K3_LONG_X, generator=g, device=dev) for _ in range(3))
+    for s1, s2 in FUSED_PAIRS:
+        got = adv_lap.adv_lap_rhs(f, ux, uy, dz, dy, dx, s1, s2)
+        ref = adv_lap.adv_lap_rhs_ref(f.double(), ux.double(), uy.double(), dz, dy, dx, s1, s2)
+        for out, g_, r_ in zip(("axy", "r"), got, ref):
+            _compare(stats, "adv_lap", f"{out} chains nb={lane.line_nb(K3_LONG_X[-1])} "
+                     f"{s1.name}+{s2.name} {K3_LONG_X}", g_, r_, failures)
+        del got, ref
+
+
 def _substep_state(dev, shape, dtype):
     """(f, u, spacing) of the advection–diffusion slices at ``shape``."""
     if tuple(shape) == LONG:
@@ -1363,10 +1413,10 @@ def phase_long_slice(dev, name) -> dict:
 
 
 def _long_times(dev, smi) -> dict:
-    """CUDA-event medians at LONG f32 (and K13, K9, K6, K5, K2 rk at
-    256^3), in turns: K13, K9 and K6 (and K5 at 256^3) with their plain
-    versions, queued (device time alone), beside their bounds (their y and
-    x phases: phase_split); K13
+    """CUDA-event medians at LONG f32 (and K13, K9, K6, K4, K5, K3, K2 rk at
+    256^3), in turns: K13, K9, K6 and K4 (and K5 and K3 at 256^3) with their
+    plain versions, queued (device time alone), beside their bounds (their
+    y and x phases, K4's one kernel: phase_split); K13
     and K2 rk with their unfused compositions
     (row 16: K7, two multiplies and an add; row 7: K2 solve_only and the
     elementwise update), K2 rk with its plain version, the stepwise tail
@@ -1391,17 +1441,25 @@ def _long_times(dev, smi) -> dict:
         times[f"div_rhs_{key}"] = _turns(lambda: vec.div_rhs_ref(f, ux, uy, dz, dy, dx, s1),
                                          lambda: vec.div_rhs(f, ux, uy, dz, dy, dx, s1),
                                          queued=True)
-        names = ["adv_pair", "lap_rhs", "div_rhs"]
+        # K4 (the middle substep: q in, q' out) as every fused step calls it
+        times[f"rk3_mega_{key}"] = _turns(
+            lambda: megastep.rk3_mega_ref(f, r, ux, uz, q, s1, s2, dz, **RK3_MID),
+            lambda: megastep.rk3_mega(f, r, ux, uz, q, s1, s2, dz, **RK3_MID), queued=True)
+        names = ["adv_pair", "lap_rhs", "div_rhs", "rk3_mega"]
         if shape != LONG:
             u = (f, ux, uy)
             times[f"adv_lap3_{key}"] = _turns(
                 lambda: adv_lap.adv_lap_rhs3_ref(u, dz, dy, dx, s1, s2),
                 lambda: adv_lap.adv_lap_rhs3(u, dz, dy, dx, s1, s2), queued=True)
-            names.append("adv_lap3")
+            # K3 as the fused advection–diffusion step calls it
+            times[f"adv_lap_{key}"] = _turns(
+                lambda: adv_lap.adv_lap_rhs_ref(f, ux, uy, dz, dy, dx, s1, s2),
+                lambda: adv_lap.adv_lap_rhs(f, ux, uy, dz, dy, dx, s1, s2), queued=True)
+            names += ["adv_lap3", "adv_lap"]
         for name in names:
             t = times[f"{name}_{key}"]
             t["bound_ms"] = BYTES_PER_POINT[name] * f.numel() / HBM_BYTES_PER_S * 1e3
-            t["nb"] = lane.line_nb(shape[-1])
+            t["nb"] = lane.line_nb(shape[0] if name == "rk3_mega" else shape[-1])
 
         def k7_unfused():
             fx, fy = pair.gradient_pair(f, dy, dx, s1)
@@ -1457,7 +1515,8 @@ def _long_times(dev, smi) -> dict:
 
 def phase_split(dev, smi) -> dict:
     """The durations of the y and x phase kernels of K13, K9 and K6 at LONG
-    and 256^3 f32, and of K5 at 256^3, by torch.profiler
+    and 256^3 f32, and of K5 and K3 at 256^3, and of K4's kernel at both,
+    by torch.profiler
     (``kernel_ms_by_name``): the two kernels of one call apart. Run last,
     after the benchmark scripts, whose timelines are read from profiler
     captures too."""
@@ -1473,9 +1532,13 @@ def phase_split(dev, smi) -> dict:
         phases[f"lap_rhs_{key}"] = kernel_ms_by_name(lambda: adv_lap.lap_rhs(f, dz, dy, dx, s2))
         phases[f"div_rhs_{key}"] = kernel_ms_by_name(
             lambda: vec.div_rhs(f, ux, uy, dz, dy, dx, s1))
+        phases[f"rk3_mega_{key}"] = kernel_ms_by_name(
+            lambda: megastep.rk3_mega(f, ux, uy, f, ux, s1, s2, dz, **RK3_MID))
         if shape != LONG:
             phases[f"adv_lap3_{key}"] = kernel_ms_by_name(
                 lambda: adv_lap.adv_lap_rhs3((f, ux, uy), dz, dy, dx, s1, s2))
+            phases[f"adv_lap_{key}"] = kernel_ms_by_name(
+                lambda: adv_lap.adv_lap_rhs(f, ux, uy, dz, dy, dx, s1, s2))
         del f, ux, uy
     emit({"phase": "phase_split", "device": smi, "dtype": "float32", "phases_ms": phases,
           "note": "mean device ms a call spends in each kernel, by kernel name"})
@@ -2442,11 +2505,12 @@ def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
             "timed": [f"{name} {next(v for k, v in DIAG_TIMED.items() if name.startswith(k))} "
                       "f32, queued"],
         })
-    # K9, K13 and K6 at LONG (their launches on the long-x paths) and 256^3,
-    # and K5 at 256^3, queued, with their phases (the chained x phase and
-    # the y phase)
+    # K9, K13, K6 and K4 at LONG (their launches on the long-x paths) and
+    # 256^3, and K5 and K3 at 256^3, queued, with their phases (the chained
+    # x phase and the y phase; K4's one kernel)
     for name, shapes in (("lap_rhs", (LONG, (N, N, N))), ("adv_pair", (LONG, (N, N, N))),
-                         ("div_rhs", (LONG, (N, N, N))), ("adv_lap3", ((N, N, N),))):
+                         ("div_rhs", (LONG, (N, N, N))), ("rk3_mega", (LONG, (N, N, N))),
+                         ("adv_lap3", ((N, N, N),)), ("adv_lap", ((N, N, N),))):
         row = next(r for r in rows if r["name"] == name)
         row["queued"] = {
             "x".join(map(str, shape)): {k: long_times[f"{name}_{'x'.join(map(str, shape))}"][k]

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Device time of the kernels that solve whole x-lines in sub-block chains,
+"""Device time of the kernels that solve whole lines in sub-block chains,
 on one card, queued: K1 (``compact_lane``), and K9 (``lap_rhs``), K13
-(``advection_pair``), K6 (``div_rhs``) and K5 (``adv_lap_rhs3``), whose x
-phase runs the same chains.
+(``advection_pair``), K6 (``div_rhs``), K5 (``adv_lap_rhs3``) and K3
+(``adv_lap_rhs``), whose x phase runs the same chains; and K4
+(``rk3_mega``), which runs them down z.
 
 Times the checkout in the working directory, so that two checkouts can be
 held against each other in one run on one card:
@@ -29,12 +30,18 @@ K6 (``div_rhs``, SCHEME4_PERIODIC; row 20) at (64, 128, 8192), 256^3 and
 (42, 128, 12278), and K5 (``adv_lap_rhs3``, SCHEME4_PERIODIC with
 SCHEME4_D2_PERIODIC; row 19) at 256^3, as the Navier–Stokes step calls
 them, likewise (K6 three reads and one write a point, K5 three and six).
+K3 (``adv_lap``, the same pair; row 18) at 256^3 and (16, 64, 6134) (two
+chains of 3067 rows, opted in), likewise (three reads and two writes). K4
+(``rk3_mega``, SCHEME4_PERIODIC with SCHEME4_D2_PERIODIC, the middle
+substep: q in, q' out; row 22) at 256^3, (64, 128, 8192), (42, 128, 12278)
+(one chain a z-line), and (257, 64, 256) (nz prime: one chain), beside its
+byte bound (five reads and two writes) and its kernel's duration.
 Every time is taken with CUDA events around calls all issued behind a spin
 kernel (``cuda_time_ms(..., queued=True)``: the kernel plus its launch, no
 host time). Prints the card's name and power limit, then one JSON line;
 exits non-zero without a card. Arguments name the groups to time, of
-``compact_lane`` (K1), ``lap_rhs``, ``adv_pair``, ``div_rhs`` and
-``adv_lap3``; none times them all:
+``compact_lane`` (K1), ``lap_rhs``, ``adv_pair``, ``div_rhs``,
+``adv_lap3``, ``adv_lap`` and ``rk3_mega``; none times them all:
 
     python3 lane_times.py div_rhs adv_lap3
 """
@@ -53,7 +60,7 @@ import torch
 sys.path.insert(0, ".")  # the checkout being timed, not this script's
 
 import cfd_tpu_torch as ct  # noqa: E402
-from cfd_tpu_torch.ops import adv_lap, dense, lane, pair, vec  # noqa: E402
+from cfd_tpu_torch.ops import adv_lap, dense, lane, megastep, pair, vec  # noqa: E402
 from cfd_tpu_torch.utils.timing import HBM_BYTES_PER_S, cuda_time_ms  # noqa: E402
 
 # the profiler helper of this script's own checkout (the timed one may
@@ -77,10 +84,14 @@ XY_CASES = {  # kernel: shapes, in the order they are timed
     "adv_pair": XY_SHAPES,
     "div_rhs": ((64, 128, 8192), (256, 256, 256), (42, 128, 12278)),
     "adv_lap3": ((256, 256, 256),),
+    "adv_lap": ((256, 256, 256), (16, 64, 6134)),
 }
-# least bytes a point: K9 1 read and 1 write, K13 and K6 3 and 1, K5 3 and 6
-XY_BYTES = {"lap_rhs": 8, "adv_pair": 16, "div_rhs": 16, "adv_lap3": 36}
-GROUPS = ("compact_lane", *XY_CASES)
+# least bytes a point: K9 1 read and 1 write, K13 and K6 3 and 1, K5 3 and
+# 6, K3 3 and 2
+XY_BYTES = {"lap_rhs": 8, "adv_pair": 16, "div_rhs": 16, "adv_lap3": 36, "adv_lap": 20}
+MEGA_SHAPES = ((256, 256, 256), (64, 128, 8192), (42, 128, 12278), (257, 64, 256))
+MEGA_BYTES = 28  # K4: f, r, axy, uz and q read, q' and f' written
+GROUPS = ("compact_lane", *XY_CASES, "rk3_mega")
 
 
 def _lane_times(g, dev, res) -> None:
@@ -111,13 +122,29 @@ def _xy_times(g, dev, res, names) -> None:
             fn = {"lap_rhs": lambda: adv_lap.lap_rhs(f, d, d, d, s2),
                   "adv_pair": lambda: pair.advection_pair(f, ux, uy, d, d, s1),
                   "div_rhs": lambda: vec.div_rhs(f, ux, uy, d, d, d, s1),
-                  "adv_lap3": lambda: adv_lap.adv_lap_rhs3((f, ux, uy), d, d, d, s1, s2)}[name]
+                  "adv_lap3": lambda: adv_lap.adv_lap_rhs3((f, ux, uy), d, d, d, s1, s2),
+                  "adv_lap": lambda: adv_lap.adv_lap_rhs(f, ux, uy, d, d, d, s1, s2)}[name]
             res[f"{name} {'x'.join(map(str, shape))}"] = {
                 "kernel_ms": cuda_time_ms(fn, queued=True),
                 "bound_ms": XY_BYTES[name] * f.numel() / HBM_BYTES_PER_S * 1e3,
                 "phases_ms": _profiling.kernel_ms_by_name(fn),
             }
             del f, ux, uy
+
+
+def _mega_times(g, dev, res) -> None:
+    s1, s2 = ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC
+    rk = dict(a=-5.0 / 9.0, b=15.0 / 16.0, dt=1e-3, nu=1e-3)  # the middle substep
+    d = 2 * math.pi / 128
+    for shape in MEGA_SHAPES:
+        f, r, axy, uz, q = (torch.randn(shape, generator=g, device=dev) for _ in range(5))
+        fn = lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, d, **rk)
+        res[f"rk3_mega {'x'.join(map(str, shape))}"] = {
+            "kernel_ms": cuda_time_ms(fn, queued=True),
+            "bound_ms": MEGA_BYTES * f.numel() / HBM_BYTES_PER_S * 1e3,
+            "phases_ms": _profiling.kernel_ms_by_name(fn),
+        }
+        del f, r, axy, uz, q
 
 
 def main(argv=None) -> None:
@@ -136,6 +163,8 @@ def main(argv=None) -> None:
     if "compact_lane" in names:
         _lane_times(g, dev, res)
     _xy_times(g, dev, res, names)
+    if "rk3_mega" in names:
+        _mega_times(g, dev, res)
     print(json.dumps(res), flush=True)
 
 

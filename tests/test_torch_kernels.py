@@ -315,8 +315,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         lane.lane_derivative(torch.ones(2, 60000, device=cuda), 0.1, ct.SCHEME4)
 
 
+# K3 on the paired chained x phase: x-lines of 256 (8 chains), 257 (one
+# chain) and 6134 (two chains of 3067 rows, one line of two families a block
+# in opted-in shared memory), beside ragged and tiny ones
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(6, 40, 128), (40, 96, 200), (5, 7, 9)])
+@pytest.mark.parametrize("shape", [(6, 40, 128), (40, 96, 200), (5, 7, 9), (5, 8, 256),
+                                   (5, 8, 257), (16, 64, 6134)])
 @pytest.mark.parametrize("schemes", FUSED, ids=FUSED_IDS)
 def test_adv_lap_kernel_matches_plain(cuda, schemes, shape):
     s1, s2 = schemes
@@ -336,7 +340,10 @@ def test_adv_lap_kernel_matches_plain(cuda, schemes, shape):
 # O(1), so a wrong d2 solve fails the gate
 @pytest.mark.parametrize("nu", [1e-2, 1e3], ids=["nu1e-2", "nu1e3"])
 @pytest.mark.parametrize("case", ["first", "middle", "last"])
-@pytest.mark.parametrize("shape", [(64, 16, 128), (40, 96, 200)])
+# z-lines of 64 (two chains), 40 (one chain, ragged columns), 256 (8
+# chains), 42 and the prime 257 (one chain)
+@pytest.mark.parametrize("shape", [(64, 16, 128), (40, 96, 200), (256, 8, 32), (42, 16, 128),
+                                   (257, 8, 40)])
 @pytest.mark.parametrize("schemes", FUSED + [(ct.SCHEME4, ct.SCHEME4_D2)],
                          ids=FUSED_IDS + ["pade4_walls"])
 def test_rk3_mega_kernel_matches_plain(cuda, schemes, shape, case, nu):
@@ -418,13 +425,6 @@ def test_pair_subtract_kernel_matches_plain(cuda, scheme, shape):
         assert _rel_err(g_, r_) <= F32_GATE
 
 
-# K5 against K3 on the same component, relative to max|K3|: at most 2.4e-7
-# on an H100 at (40, 96, 200) and 256^3 (chip_smoke.py's adv_lap3
-# "max_rel_gap"), so four times that, and a tenth of the gate against plain
-# float64 that both kernels meet
-K5_K3_GAP = 1e-6
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(6, 40, 128), (40, 96, 200), (5, 7, 9)])
 @pytest.mark.parametrize("schemes", FUSED, ids=FUSED_IDS)
@@ -440,12 +440,10 @@ def test_adv_lap3_kernel_matches_plain_and_k3(cuda, schemes, shape):
     for i in range(3):
         assert _rel_err(axy[i], ref[0][i]) <= F32_GATE
         assert _rel_err(r[i], ref[1][i]) <= F32_GATE
-        # K3 on the same component: the same y phase, and an x phase in
-        # sub-block chains where K3's runs one thread a line, so the two
-        # differ only by the float32 roundings of the two solve orders
+        # K3 on the same component: the same y phase and the same paired
+        # chained x phase, so the same float32 arithmetic
         a1, r1 = adv_lap.adv_lap_rhs(u[i], u[0], u[1], 0.03, 0.02, 0.01, s1, s2)
-        assert _rel_err(axy[i], a1.double()) <= K5_K3_GAP
-        assert _rel_err(r[i], r1.double()) <= K5_K3_GAP
+        assert torch.equal(axy[i], a1) and torch.equal(r[i], r1)
 
 
 @pytest.mark.gpu
@@ -776,12 +774,36 @@ def test_divergence_past_the_x_limit_is_the_three_derivative_sum(cuda):
 @pytest.mark.gpu
 def test_chained_div_rhs_and_adv_lap3_reject_lines_past_their_shared_memory(cuda):
     """A prime line (one chain) of 65537 points passes one opted-in block:
-    K6 stages one tile of it (262 KB), K5 two."""
+    K6 stages one tile of it (262 KB), K5 and K3 two."""
     f = torch.zeros((5, 8, 65537), device=cuda)
     with pytest.raises(RuntimeError, match="div_rhs launch failed"):
         vec.div_rhs(f, f, f, 0.1, 0.1, 0.1, ct.SCHEME4_PERIODIC)
     with pytest.raises(RuntimeError, match="adv_lap3 launch failed"):
         adv_lap.adv_lap_rhs3((f, f, f), 0.1, 0.1, 0.1, *FUSED[0])
+    with pytest.raises(RuntimeError, match="adv_lap launch failed"):
+        adv_lap.adv_lap_rhs(f, f, f, 0.1, 0.1, 0.1, *FUSED[0])
+
+
+@pytest.mark.gpu
+def test_rk3_mega_rejects_z_lines_past_its_shared_memory(cuda):
+    """K4 stages two tiles of a column's z-line: at a prime nz (one chain)
+    of 29059 points they and the faces take 232,488 bytes, past the opted-in
+    maximum of 232,448 that the device reports (``smem_limit``, the
+    kernel's own query), and ``rk3_mega_supported`` declines it; the prime
+    29033 fits."""
+    s1, s2 = FUSED[0]
+    kw = dict(a=0.0, b=1.0, dt=1e-3, nu=1e-3)
+    limit = megastep.smem_limit(cuda)
+    assert megastep.tile_bytes(29033, 1) <= limit < megastep.tile_bytes(29059, 1)
+    assert megastep.rk3_mega_supported(s1, s2, (29033, 1, 4), torch.float32, cuda)
+    assert not megastep.rk3_mega_supported(s1, s2, (29059, 1, 4), torch.float32, cuda)
+    f = torch.zeros((29059, 1, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="rk3_mega launch failed"):
+        megastep.rk3_mega(f, f, f, f, None, s1, s2, 0.1, **kw)
+    f = torch.zeros((29033, 1, 4), device=cuda)
+    q, fn = megastep.rk3_mega(f, f, f, f, None, s1, s2, 0.1, **kw)
+    torch.cuda.synchronize()
+    assert not fn.any() and not q.any()
 
 
 @pytest.mark.gpu

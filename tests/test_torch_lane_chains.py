@@ -65,7 +65,7 @@ def _field(n, seed):
     return np.random.default_rng(seed).standard_normal((LINES[n], n)) + 0.5
 
 
-def _rhs(f, scheme, dtype):
+def _rhs(f, scheme, dtype, dx=DX):
     """The scaled RHS rows, lines (L, n), as ``ChainRhs`` forms them: the
     interior stencil in difference form over the line wrapped at its ends,
     then the closure rows of a non-periodic line from f."""
@@ -73,7 +73,7 @@ def _rhs(f, scheme, dtype):
     c, _ = _native.kernel_tables(scheme, n)
     cast = np.dtype(dtype).type
     f = f.astype(dtype)
-    scale = cast((1.0 / DX) ** scheme.derivative_order)
+    scale = cast((1.0 / dx) ** scheme.derivative_order)
     r = cast(c["center"]) * f
     for k in range(1, c["K"] + 1):
         r = r + cast(c["w"][k - 1]) * ((np.roll(f, -k, -1) - f)
@@ -105,8 +105,16 @@ def _chains(f, scheme, dtype):
     ``dtype``: ``solve_line_chain`` for every chain of every line, the
     chains of all lines side by side (each with its own kind's rows), each
     in the kernel's order of operations."""
-    n = f.shape[-1]
-    nb = lane.line_nb(n)
+    return _solve_chains(_rhs(f, scheme, dtype), scheme, dtype)
+
+
+def _solve_chains(r, scheme, dtype, nb=None):
+    """``solve_chain`` on the formed RHS rows ``r`` of lines (L, n), in
+    ``dtype``, in ``nb`` sub-blocks a line (``lane.line_nb(n)`` if None),
+    on ``lane.chain_table(scheme, n, nb)``."""
+    n = r.shape[-1]
+    shape = r.shape
+    nb = lane.line_nb(n) if nb is None else nb
     bz = n // nb
     table, h, win = lane.chain_table(scheme, n, nb)
     table = table.astype(dtype)
@@ -117,7 +125,7 @@ def _chains(f, scheme, dtype):
     red = table[6 * rows :].reshape(2, win, nb)
     kinds = [0 if k == 0 else (2 if k == nb - 1 else 1) for k in range(nb)]
     bwd, fwd = bwd[kinds, 1:-1], fwd[kinds, 1:-1]  # (nb, bz, 4), (nb, bz, 2)
-    r = _rhs(f, scheme, dtype).reshape(-1, nb, bz)
+    r = r.astype(dtype).reshape(-1, nb, bz)
     m = 2 * nb
     zs = np.empty_like(r)
     z = np.zeros(r.shape[:2], dtype)
@@ -144,7 +152,7 @@ def _chains(f, scheme, dtype):
         if i < bz - 1:
             x = (zs[:, :, i] - bwd[:, i, 1] * x) * bwd[:, i, 0]
         out[:, :, i] = x + alpha * bwd[:, i, 2] + beta * bwd[:, i, 3]
-    return out.reshape(f.shape)
+    return out.reshape(shape)
 
 
 def _exact(f, scheme):

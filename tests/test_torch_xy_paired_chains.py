@@ -1,7 +1,8 @@
-"""K6 (``div_rhs``) and K5 (``adv_lap_rhs3``) with their x phase in K1's
-sub-block chains (``csrc/xy_phase.cuh`` ``xy_chain_launch``: K6 as K9's
-z-RHS kind, K5 as the paired kind), held on the CPU; and the routing of
-``derivatives.divergence`` by ``vec.div_fused_supported``.
+"""K6 (``div_rhs``), K5 (``adv_lap_rhs3``) and K3 (``adv_lap_rhs``) with
+their x phase in K1's sub-block chains (``csrc/xy_phase.cuh``
+``xy_chain_launch``: K6 as K9's z-RHS kind, K5 and K3 as the paired kind),
+held on the CPU; and the routing of ``derivatives.divergence`` by
+``vec.div_fused_supported``.
 
 A CUDA kernel cannot run here, so the chained x phases are held through a
 float64/float32 numpy transcription of what a launch does, on
@@ -23,15 +24,19 @@ the y phase of the plain version:
   SCHEME4 (closure rows) with SCHEME4_D2_PERIODIC. The kernel runs both
   families at the wider stencil of the two; the narrower scheme's weights
   past its own are 0, so its rows are the sums transcribed here.
+* K3: the same paired launch for one field f advected by (ux, uy) (K5 is
+  it for each component, advected by u0 and u1); against
+  ``adv_lap.adv_lap_rhs_ref``, for the same pairs.
 
 Gates: 1e-10 of max|ref| in float64, within 1e-5 in float32 (each output
 against its own max|ref|). K6 at x-lines of 8192, 512, 256, 257 (one
 chain) and 12278 (opted-in shared memory), K5 at 256, 512, 257 and 6134
-(two chains of 3067 rows, opted in); the fewest planes and y-lines the
-schemes take (nz >= 5 for the sixth-order z stencils, ny >= 6). Past 1024
-points the float64 plain versions take their x derivative from the banded
-solve (``dense.dense_derivative``). The plain versions are held against the Pallas kernels in
-interpret mode by ``tests/test_torch_navier_stokes.py``.
+(two chains of 3067 rows, opted in), K3 at 256, 257 and 6134; the fewest
+planes and y-lines the schemes take (nz >= 5 for the sixth-order z
+stencils, ny >= 6). Past 1024 points the float64 plain versions take their
+x derivative from the banded solve (``dense.dense_derivative``). The plain
+versions are held against the Pallas kernels in interpret mode by
+``tests/test_torch_navier_stokes.py``.
 """
 
 import numpy as np
@@ -55,6 +60,7 @@ K5_PAIRS = {  # chip_smoke.FUSED_PAIRS, and a d1 scheme with closure rows
     "SCHEME4+SCHEME4_D2_PERIODIC": (ct.SCHEME4, ct.SCHEME4_D2_PERIODIC),
 }
 K5_SHAPES = [(5, 8, 256), (5, 8, 512), (5, 8, 257), (5, 8, 6134)]
+K3_SHAPES = [(5, 8, 256), (5, 8, 257), (5, 8, 6134)]
 
 
 def k6_chained(ux, uy, uz, dz, dy, scheme, dtype):
@@ -122,24 +128,27 @@ def _pair_x_phase(sx, tsx, out_a, out_r, mx, s1, s2, dtype):
         out_r.reshape(-1)[g] += tile[at + half]
 
 
+def k3_chained(f, ux, uy, dz, dy, s1, s2, dtype):
+    """K3 with its x phase transcribed (x spacing DX): the y phase, uy D1y f
+    and B_z f + D2y (T_z f), from the plain version; then the paired
+    chained x phase on f and T_z f, advected by ux."""
+    f, ux, uy = (a.astype(dtype) for a in (f, ux, uy))
+    t = torch.from_numpy(f)
+    a = (torch.from_numpy(uy) * dense.dense_derivative(t, dy, s1, -2)).numpy().copy()
+    r = (dense.dense_apply("rhs", t, s2, 0, float(dz) ** 2)
+         + dense.dense_derivative(dense.dense_apply("lhs", t, s2, 0), dy, s2, -2))
+    r = r.numpy().copy()
+    n = f.shape[-1]
+    _pair_x_phase(f.reshape(-1, n), _tz(f, s2, dtype).reshape(-1, n), a, r, ux, s1, s2, dtype)
+    return a, r
+
+
 def k5_chained(u, dz, dy, s1, s2, dtype):
-    """K5 with its x phase transcribed (x spacing DX): per component the y
-    phase, u1 D1y u_i and B_z u_i + D2y (T_z u_i), from the plain version;
-    then the paired chained x phase on u_i and T_z u_i, advected by u0."""
-    u = [c.astype(dtype) for c in u]
-    ut = [torch.from_numpy(c) for c in u]
-    axy, r = [], []
-    for c, t in zip(u, ut):
-        a = (ut[1] * dense.dense_derivative(t, dy, s1, -2)).numpy().copy()
-        rr = (dense.dense_apply("rhs", t, s2, 0, float(dz) ** 2)
-              + dense.dense_derivative(dense.dense_apply("lhs", t, s2, 0), dy, s2, -2))
-        rr = rr.numpy().copy()
-        n = c.shape[-1]
-        _pair_x_phase(c.reshape(-1, n), _tz(c, s2, dtype).reshape(-1, n), a, rr, u[0], s1, s2,
-                      dtype)
-        axy.append(a)
-        r.append(rr)
-    return axy, r
+    """K5 with its x phase transcribed: K3's launch on each component u_i,
+    advected by u0 and u1 (the kernel runs the same pair of families for
+    each component, one grid row a component)."""
+    outs = [k3_chained(c, u[0], u[1], dz, dy, s1, s2, dtype) for c in u]
+    return [o[0] for o in outs], [o[1] for o in outs]
 
 
 def test_pair_lines_per_block():
@@ -173,6 +182,17 @@ def test_adv_lap_rhs3_paired_chained_x_phase(name, shape):
         axy, r = k5_chained(u, DZ, DY, s1, s2, dtype)
         for got, ref in zip(axy + r, refs[0] + refs[1]):
             assert _rel(got, ref.numpy()) <= gate
+
+
+@pytest.mark.parametrize("shape", K3_SHAPES, ids=[f"{s}" for s in K3_SHAPES])
+@pytest.mark.parametrize("name", K5_PAIRS)
+def test_adv_lap_rhs_paired_chained_x_phase(name, shape):
+    s1, s2 = K5_PAIRS[name]
+    f, ux, uy = _fields(shape, 3, seed=shape[-1] + 11 * len(name))
+    ref = adv_lap.adv_lap_rhs_ref(*map(torch.from_numpy, (f, ux, uy)), DZ, DY, DX, s1, s2)
+    for dtype, gate in ((np.float64, F64_TOL), (np.float32, F32_GATE)):
+        for got, want in zip(k3_chained(f, ux, uy, DZ, DY, s1, s2, dtype), ref):
+            assert _rel(got, want.numpy()) <= gate
 
 
 def test_div_fused_supported_follows_the_jax_predicate():
