@@ -29,6 +29,8 @@ jax.config.update("jax_enable_x64", True)
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
+pytest_plugins = ("_suite_limits",)  # limits on each test's time and CPU work
+
 
 @pytest.fixture
 def rng():

@@ -66,7 +66,7 @@ def test_27_device_mesh():
         env=env,
         capture_output=True,
         text=True,
-        timeout=1200,
+        timeout=540,
     )
     assert out.returncode == 0, out.stdout + out.stderr
     assert "MESH27 PASS" in out.stdout
