@@ -20,10 +20,10 @@
 // 1.07 GB or 0.3205 ms at 3.35 TB/s at (64, 128, 8192)); its two line
 // solves are ~52 flops a point. It is one advection family of
 // xy_phase.cuh, alone (K3's first family without the second): the y phase
-// walks (plane, x) columns down y as K2 does and stores uy D1y f. That
-// moves ~8 passes (the y phase's scratch round trip, the output's
-// read-modify-write and f read twice), and the y phase is a latency-bound
-// recurrence like K2.
+// (`xy_y_kernel<K, XY_ADV>`) stages C columns' y-lines of f with cp.async,
+// solves them in y-tile sub-block chains and stores uy D1y f once. That
+// moves 7 passes (the output's read-modify-write and f read in both
+// phases).
 //
 // Design of the x phase (xy_phase.cuh `xy_chain_launch`): K1's sub-block
 // Thomas chains (line_chains.cuh). Each block stages L x-lines of f with
@@ -36,16 +36,20 @@
 
 #include "xy_phase.cuh"
 
-// f, ux, uy, out: (planes, ny, nx); out aliases no input. taby/cy: the d1
-// scheme along y (n = ny, scaled by 1/dy); cx with chx, nb, h, win: along x
-// (n = nx, scaled by 1/dx), its chain table (ops/lane.py `chain_table`) for
-// nb sub-blocks a line.
+// f, ux, uy, out: (planes, ny, nx); out aliases no input. cy with taby,
+// nby, hy, winy: the d1 scheme along y (n = ny, scaled by 1/dy), its chain
+// table (ops/lane.py `chain_table`) for nby sub-blocks a y-line, or its
+// per-point table where nby = 0 (the column walk); cx with chx, nb, h, win:
+// along x (n = nx, scaled by 1/dx), its chain table for nb sub-blocks a
+// line.
 extern "C" int cfd_adv_pair(const float* f, const float* ux, const float* uy, float* out,
                             const float* taby, const float* chx, const Coef* cy, const Coef* cx,
-                            int planes, int nb, int h, int win, void* stream) {
+                            int planes, int nby, int hy, int winy, int nb, int h, int win,
+                            void* stream) {
   XYArgs a = xy_args(taby, taby, nullptr, nullptr, cy, cy, cx, cx, nullptr, nullptr, planes, 0);
   a.fam[0] = {f, f, uy, ux, nullptr, out, 0, 0};
   a.nfam = 1;
+  xy_y_chains(a, 0, nby, hy, winy);
   xy_chain_table(a, 0, chx, nb, h, win);
   return xy_chain_launch<XY_ADV>(a, stream);
 }

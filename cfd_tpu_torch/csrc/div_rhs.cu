@@ -16,11 +16,10 @@
 // at 3.35 TB/s at (64, 128, 8192)); its ~64 flops per point take far less.
 // It is one z-RHS family of xy_phase.cuh (a y phase and an x phase, counted
 // as one call by the wrapper), K9's structure with the d1 scheme, uy as sy,
-// ux as sx and uz as bz: the y phase solves D1y on T_z uy, formed from
-// three planes as it reads, and stores it plus B_z uz. That moves ~7
-// passes: the y phase's scratch round trip and the x phase's
-// read-modify-write of r; the y phase is a latency-bound recurrence like
-// K2.
+// ux as sx and uz as bz: the y phase (`xy_y_kernel<K, XY_RHS>`) stages C
+// columns' y-lines of T_z uy, formed from three planes, solves them in
+// y-tile sub-block chains and stores D1y (T_z uy) + B_z uz once. That moves
+// 6 passes, not 4: the x phase's read-modify-write of r.
 //
 // Design of the x phase (xy_phase.cuh `xy_chain_launch`, as K9's): K1's
 // sub-block Thomas chains (line_chains.cuh). Each block stages L lines of
@@ -35,17 +34,20 @@
 
 #include "xy_phase.cuh"
 
-// ux, uy, uz, r: (nz, ny, nx); r aliases no input. tab1y/c1y: the d1 scheme
-// along y (scaled by 1/dy); c1x with chx, nb, h, win: along x (scaled by
-// 1/dx), its chain table (ops/lane.py `chain_table`) for nb sub-blocks a
-// line; bt, tt: its z tables (nz, 2W + 1), scaled by 1/dz, and (nz, 3).
+// ux, uy, uz, r: (nz, ny, nx); r aliases no input. c1y with tab1y, nby,
+// hy, winy: the d1 scheme along y (scaled by 1/dy), its chain table
+// (ops/lane.py `chain_table`) for nby sub-blocks a y-line, or its per-point
+// table where nby = 0 (the column walk); c1x with chx, nb, h, win: along x
+// (scaled by 1/dx), its chain table for nb sub-blocks a line; bt, tt: its z
+// tables (nz, 2W + 1), scaled by 1/dz, and (nz, 3).
 extern "C" int cfd_div_rhs(const float* ux, const float* uy, const float* uz, float* r,
                            const float* tab1y, const float* chx, const float* bt, const float* tt,
-                           const Coef* c1y, const Coef* c1x, int nz, int W, int nb, int h,
-                           int win, void* stream) {
+                           const Coef* c1y, const Coef* c1x, int nz, int W, int nby, int hy,
+                           int winy, int nb, int h, int win, void* stream) {
   XYArgs a = xy_args(tab1y, tab1y, nullptr, nullptr, c1y, c1y, c1x, c1x, bt, tt, nz, W);
   a.fam[0] = {uy, ux, nullptr, nullptr, uz, r, 0, 1};
   a.nfam = 1;
+  xy_y_chains(a, 0, nby, hy, winy);
   xy_chain_table(a, 0, chx, nb, h, win);
   return xy_chain_launch<XY_RHS>(a, stream);
 }

@@ -16,9 +16,11 @@
 // at 3.35 TB/s at (64, 128, 8192)); its ~64 flops per point take far less.
 // It is K3's z-RHS family alone: one family of xy_phase.cuh (a y phase and
 // an x phase, counted as one call by the wrapper), K6's structure with the
-// d2 scheme and f as sy, sx and bz. The y phase solves D2y on h = T_z f,
-// formed from three planes as it reads, and stores it plus B_z f. That
-// moves ~7 passes, and the y phase is a latency-bound recurrence like K2.
+// d2 scheme and f as sy, sx and bz. The y phase (`xy_y_kernel<K, XY_RHS>`)
+// stages C columns' y-lines of h = T_z f, formed from three planes, solves
+// them in y-tile sub-block chains and stores D2y h + B_z f once. That moves
+// 5 passes, not 2: f read in both phases and the x phase's
+// read-modify-write of r.
 //
 // Design of the x phase (xy_phase.cuh `xy_chain_launch`): K1's sub-block
 // Thomas chains (line_chains.cuh). Each block stages L lines of h = T_z f,
@@ -31,16 +33,20 @@
 
 #include "xy_phase.cuh"
 
-// f, r: (nz, ny, nx); r does not alias f. tab2y/c2y: the periodic d2 scheme
-// along y (scaled by 1/dy^2); c2x with chx, nb, h, win: along x (scaled by
-// 1/dx^2), its chain table (ops/lane.py `chain_table`) for nb sub-blocks a
-// line; bt, tt: its z tables (nz, 2W + 1), scaled by 1/dz^2, and (nz, 3).
+// f, r: (nz, ny, nx); r does not alias f. c2y with tab2y, nby, hy, winy:
+// the periodic d2 scheme along y (scaled by 1/dy^2), its chain table
+// (ops/lane.py `chain_table`) for nby sub-blocks a y-line, or its per-point
+// table where nby = 0 (the column walk); c2x with chx, nb, h, win: along x
+// (scaled by 1/dx^2), its chain table for nb sub-blocks a line; bt, tt: its
+// z tables (nz, 2W + 1), scaled by 1/dz^2, and (nz, 3).
 extern "C" int cfd_lap_rhs(const float* f, float* r, const float* tab2y, const float* chx,
                            const float* bt, const float* tt, const Coef* c2y, const Coef* c2x,
-                           int nz, int W, int nb, int h, int win, void* stream) {
+                           int nz, int W, int nby, int hy, int winy, int nb, int h, int win,
+                           void* stream) {
   XYArgs a = xy_args(tab2y, tab2y, nullptr, nullptr, c2y, c2y, c2x, c2x, bt, tt, nz, W);
   a.fam[0] = {f, f, nullptr, nullptr, f, r, 0, 1};
   a.nfam = 1;
+  xy_y_chains(a, 0, nby, hy, winy);
   xy_chain_table(a, 0, chx, nb, h, win);
   return xy_chain_launch<XY_RHS>(a, stream);
 }

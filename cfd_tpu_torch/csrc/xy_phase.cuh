@@ -35,11 +35,37 @@
 // A 256^2 plane (256 KB) does not fit one block's 227 KB of shared memory,
 // so a launch is two kernels on one stream:
 //
-// 1. y phase, one thread per (z, x) column of one family, walking y as K2
-//    does (neighbouring threads on neighbouring x, so each row access of a
-//    warp is coalesced). A z-RHS family forms T_z sy from three planes as
-//    it reads. The forward sweep keeps its values in `out`, and the
-//    backward sweep stores my * Dy sy, or Dy (T_z sy) + B_z bz, there.
+// 1. y phase, in one of two forms:
+//    - staged y-tile sub-block chains (every launch of the first two kinds
+//      and the advection-only kind: `xy_y_kernel<K, KIND>`, with the chain
+//      tables of ops/lane.py `chain_table` along y in XYArgs, `nby` > 0):
+//      as K4 runs z (rk3_mega.cu), a block takes C consecutive x-columns of
+//      one plane and stages their whole y-lines once in shared memory,
+//      tile[m * C + l] row m of column l: sy (K13, with cp.async), T_z sy
+//      (K6, K9, formed from three planes with the plane's one TzRow), or
+//      both from one read of sy (the pairs of K3 and K5). Each y-line is
+//      cut into nby = ops/lane.py `line_nb(ny)` sub-blocks of >= 32 rows,
+//      and every sub-block of every column is one thread running
+//      solve_chain on the chain table; chain (k, l) of a tile is thread k C
+//      + l of it, so a warp's 32 chains touch 32 consecutive words at
+//      every step. The block then writes my * Dy sy, or Dy (T_z sy) + B_z
+//      bz, once to `out`, coalesced: nothing goes to device memory before
+//      the final value. Staging and the epilogue move 4 columns a thread
+//      at a time (16-byte accesses) where the rows are aligned. C is 32
+//      where the tiles fit, fewer (down to 1, in the opt-in maximum past 48
+//      KB) until the block has at most 512 threads, so that three blocks
+//      of 68 KB share an SM and one's staging overlaps another's chains,
+//      and its shared memory fits: C = 32 at 256^3 for a pair and at 512^3
+//      for one tile, 16 at 512^3 for a pair (512 chains, 68 KB: on an
+//      H100, K5's y phase took 4.29 ms there, and 4.66 ms with 32 columns
+//      and 1024 chains a block), 1 for a pair on prime y-lines of 29,033
+//      points (one chain a line, 227 KB).
+//    - one thread a (z, x) column of one family (the weighted kind,
+//      `xyw_y_kernel`; and `xy_y_walk_kernel`, which the wrappers ask for
+//      with nby = 0 where even one column's tiles pass the opt-in maximum,
+//      counted in ops/lane.py `Y_WALKS`), walking y as K2 does: the forward
+//      sweep keeps its values in `out`, and the backward sweep stores the
+//      result there.
 // 2. x phase, in one of two forms:
 //    - one thread a line (K8 and K10, weighted: `xy_launch`): a block
 //      stages consecutive x-lines of a family's Z sx in shared memory with
@@ -57,19 +83,20 @@
 //      family; then adds them, times mx for advection, into the outputs,
 //      coalesced.
 //
-// Families (x: pairs of them) sit on the grid's y axis, so the branch on a
-// family's kind is uniform in a block, and each kind's body is compiled
-// apart. A weighted family with wy = 0 runs no y solve (its y phase writes
+// Families (of the paired kind: pairs of them) sit on the grid's y axis, so
+// the branch on a family's kind is uniform in a block, and each kind's body
+// is compiled apart. A weighted family with wy = 0 runs no y solve (its y phase writes
 // wb B_z bz), and one with wx = 0 has no x blocks.
 //
 // Bound on Hopper: by its work, bytes. Each output is written once and each
-// distinct input read once at the least; this form also moves the y
-// phase's scratch round trip and the x phase's read-modify-write of every
-// output, and reads the neighbouring planes that form h and B_z (mostly L2
-// hits, since all columns walk y together). Both phases are latency-bound
-// recurrences like K1 and K2; the one-thread-a-line x phase far more so on
-// long lines, where the chained one keeps a warp's 32 chains on 32
-// consecutive words at every step (PERF.md).
+// distinct input read once at the least. The staged y phase moves, a
+// family, its source once and its output once, and my (advection) once;
+// the neighbouring planes that form T_z sy and B_z bz are mostly L2 hits,
+// since the blocks in flight hold a few consecutive planes. So K5's y
+// phase moves 12 passes, not the column walk's ~27 (each pass's scratch
+// round trip in `out`). The x phase adds a read-modify-write of every
+// output. Both phases run latency-bound sub-block recurrences like K1's and
+// K4's (PERF.md).
 //
 // B_z g is formed from differences to the point's own value,
 // sum_{k != 0} bt[p,k] (g[p+k] - g[p]): a derivative's row annihilates
@@ -82,13 +109,18 @@
 // builds the kernels of its own kind, and the sources that do not, none.
 #pragma once
 
+#include <cstdint>
+
 #include "line_chains.cuh"
 
 namespace {
 
 #define XY_MAX_FAMILIES 6
 #define XY_Z_TAPS (2 * CFD_MAX_K + 1)
-#define XY_Y_THREADS 128         // y phase: columns per block
+#define XY_Y_THREADS 128         // column-walk y phase: columns per block
+#define XY_Y_COLS 32             // staged y phase: columns a block takes where they fit
+#define XY_Y_MAX_THREADS 512     // staged y phase: the most threads a block runs
+#define XY_Y_STAGERS 128         // staged y phase: the fewest threads a block stages with
 #define XY_X_THREADS 128         // weighted x phase: threads a block, >= the lines it stages
 #define XY_X_LINES 32            // weighted x phase: lines per block, halved to fit
 #define XY_X_SMEM (48 * 1024)    // x phase: bytes a block stages without opting in
@@ -117,7 +149,13 @@ struct XYFamily {
 struct XYArgs {
   XYFamily fam[XY_MAX_FAMILIES];
   Coef cy[2], cx[2];  // the launch's two schemes along y (n = ny) and x (n = nx)
+  // each scheme's table along y: its chain table (ops/lane.py
+  // `chain_table`) for nby sub-blocks a y-line, with its reduced rows'
+  // window (hy, winy), for the staged y phase (xy_y_chains); its per-point
+  // table where nby = 0 (the weighted kind and the column walk)
   const float* taby[2];
+  int hy[2], winy[2];
+  int nby;
   const float* tabx[2];
   ZTab zt;
   int nfam;
@@ -139,6 +177,28 @@ __device__ __forceinline__ long long wrap_plane(long long p, int d, int nz) {
   return ((p + d) % nz + nz) % nz;
 }
 
+// V consecutive floats at p (device memory: read-only; 16-byte aligned
+// where V = 4) into v, and from v to p (device or shared memory).
+template <int V>
+__device__ __forceinline__ void ldg_vec(const float* __restrict__ p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = __ldg(p + j);
+  }
+}
+template <int V>
+__device__ __forceinline__ void st_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = v[j];
+  }
+}
+
 // Row p of T_z: h[e] = t0 s[e - plane] + t1 s[e] + t2 s[e + plane], planes
 // wrapped; `e` is an element of plane p.
 struct TzRow {
@@ -148,9 +208,22 @@ struct TzRow {
       : t0(__ldg(zt.tt + 3 * p)), t1(__ldg(zt.tt + 3 * p + 1)), t2(__ldg(zt.tt + 3 * p + 2)),
         below((wrap_plane(p, -1, zt.nz) - p) * plane),
         above((wrap_plane(p, 1, zt.nz) - p) * plane) {}
-  // se: s[e], where the caller has it already
+  // h at V consecutive elements from e; se: s there, where the caller has
+  // it already
+  template <int V>
+  __device__ __forceinline__ void at(const float* __restrict__ s, long long e,
+                                     const float (&se)[V], float (&h)[V]) const {
+    float b[V], a[V];
+    ldg_vec<V>(s + e + below, b);
+    ldg_vec<V>(s + e + above, a);
+#pragma unroll
+    for (int j = 0; j < V; ++j) h[j] = t0 * b[j] + t1 * se[j] + t2 * a[j];
+  }
   __device__ __forceinline__ float at(const float* __restrict__ s, long long e, float se) const {
-    return t0 * __ldg(s + e + below) + t1 * se + t2 * __ldg(s + e + above);
+    const float v[1] = {se};
+    float h[1];
+    at<1>(s, e, v, h);
+    return h[0];
   }
   __device__ __forceinline__ float at(const float* __restrict__ s, long long e) const {
     return at(s, e, __ldg(s + e));
@@ -170,14 +243,27 @@ struct BzRow {
       w[k] = on ? __ldg(zt.bt + taps * p + k) : 0.f;
     }
   }
-  __device__ __forceinline__ float at(const float* __restrict__ g, long long e) const {
-    const float ge = __ldg(g + e);
-    float s = 0.f;
+  // B_z g at V consecutive elements from e
+  template <int V>
+  __device__ __forceinline__ void at(const float* __restrict__ g, long long e,
+                                     float (&s)[V]) const {
+    float ge[V], gk[V];
+    ldg_vec<V>(g + e, ge);
+#pragma unroll
+    for (int j = 0; j < V; ++j) s[j] = 0.f;
 #pragma unroll
     for (int k = 0; k < XY_Z_TAPS; ++k) {
-      if (w[k] != 0.f) s += w[k] * (__ldg(g + e + off[k]) - ge);
+      if (w[k] != 0.f) {
+        ldg_vec<V>(g + e + off[k], gk);
+#pragma unroll
+        for (int j = 0; j < V; ++j) s[j] += w[k] * (gk[j] - ge[j]);
+      }
     }
-    return s;
+  }
+  __device__ __forceinline__ float at(const float* __restrict__ g, long long e) const {
+    float s[1];
+    at<1>(g, e, s);
+    return s[0];
   }
 };
 
@@ -219,8 +305,10 @@ __device__ __forceinline__ void xy_y_column(const XYArgs& a, const XYFamily& F, 
   }
 }
 
-// At most 64 registers, so 8 blocks (1,024 threads) fit an SM.
-__global__ void __launch_bounds__(XY_Y_THREADS, 8) xy_y_kernel(const __grid_constant__ XYArgs a) {
+// The column walk: one thread a column of one family. At most 64
+// registers, so 8 blocks (1,024 threads) fit an SM.
+__global__ void __launch_bounds__(XY_Y_THREADS, 8)
+    xy_y_walk_kernel(const __grid_constant__ XYArgs a) {
   const XYFamily& F = a.fam[blockIdx.y];
   const long long col = (long long)blockIdx.x * XY_Y_THREADS + threadIdx.x;
   if (col >= a.zt.nz * a.cx[0].n) return;
@@ -228,6 +316,138 @@ __global__ void __launch_bounds__(XY_Y_THREADS, 8) xy_y_kernel(const __grid_cons
     xy_y_column<true>(a, F, col);
   } else {
     xy_y_column<false>(a, F, col);
+  }
+}
+
+// The kinds of the chained launches (xy_chain_launch<KIND>): unpaired
+// z-RHS families (XY_RHS: K6, K9), advection families (XY_ADV: K13), or
+// pairs of an advection family 2g on scheme 0 and a z-RHS family 2g + 1 on
+// scheme 1 over the same sy and sx (XY_PAIR: K3, K5). A pair stages two
+// tiles, from one read of its source.
+enum XYChainKind { XY_RHS, XY_ADV, XY_PAIR };
+
+template <int KIND>
+__host__ __device__ constexpr int xy_chain_tiles() {
+  return KIND == XY_PAIR ? 2 : 1;
+}
+
+// The staged y phase's shared memory for C columns of ny rows in nb chains:
+// `tiles` tiles, and each tile's 2 nb face slots a column.
+__host__ inline size_t xy_y_bytes(int ny, int nb, int tiles, int C) {
+  return (size_t)C * tiles * (ny + 2 * nb) * sizeof(float);
+}
+
+// The staged y phase (top of this file): block (blockIdx.x, blockIdx.y)
+// takes the C = 1 << cshift columns x0 .. x0 + C - 1 of plane p, x0 = (x
+// mod groups) C, p = x / groups, of family (pair) blockIdx.y. Tile s sits
+// at smem + s ny C, row m of column l at [m C + l]; then the faces, tile s
+// and column l at [(s 2 nb + j) C + l]. Staging and the epilogue move V
+// consecutive columns a thread at a time (V = 4: 16-byte accesses, where
+// the rows and every field are aligned), and a thread keeps its V columns
+// in both. Chain (k, l) of tile s is thread lead + s nb C + k C + l: the
+// chains are the block's last threads, and where they are fewer than
+// XY_Y_STAGERS whole warps before them help stage and write back, and pass
+// solve_chain's barriers on their own. Columns past nx are staged as 0,
+// solved and never written.
+template <int K, int KIND, int V>
+__global__ void __launch_bounds__(XY_Y_MAX_THREADS)
+    xy_y_kernel(const __grid_constant__ XYArgs a, int cshift) {
+  extern __shared__ __align__(16) float y_smem[];
+  constexpr int tiles = xy_chain_tiles<KIND>();
+  const XYFamily& F = a.fam[tiles * blockIdx.y];              // a pair's advection family
+  const XYFamily& R = a.fam[tiles * blockIdx.y + tiles - 1];  // a pair's z-RHS family
+  const int C = 1 << cshift;
+  const int ny = a.cy[0].n, nx = a.cx[0].n, nb = a.nby;
+  const long long plane = (long long)ny * nx;
+  const int groups = (nx + C - 1) >> cshift;
+  const long long p = blockIdx.x / groups;
+  const int x0 = (blockIdx.x - (int)(p * groups)) << cshift;
+  const int valid = min(C, nx - x0);  // a multiple of V
+  const long long base = p * plane + x0;  // row 0 of the block's column 0
+  const int count = ny << cshift;         // a tile's elements
+  float* faces = y_smem + tiles * count;
+  // this thread's V columns from l, and its first row, in staging and the
+  // epilogue; `rows` threads' rows a step
+  const int l = (threadIdx.x * V) & (C - 1);
+  const int m0 = (threadIdx.x * V) >> cshift;
+  const int rows = (blockDim.x * V) >> cshift;
+
+  if constexpr (KIND == XY_ADV) {
+    for (int m = m0; m < ny; m += rows) {
+      float* dst = y_smem + (m << cshift) + l;
+      const float* src = F.sy + base + (long long)m * nx + l;
+      if constexpr (V == 4) {
+        if (l < valid) {
+          cp_async16(dst, src);
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        cp_async4(dst, l < valid ? src : F.sy + base, l < valid);
+      }
+    }
+    cp_async_wait_all();
+  } else {
+    const TzRow tz(a.zt, p, plane);
+#pragma unroll 2
+    for (int m = m0; m < ny; m += rows) {
+      const int e = (m << cshift) + l;
+      const long long g = base + (long long)m * nx + l;
+      float v[V], h[V];
+      for (int j = 0; j < V; ++j) v[j] = h[j] = 0.f;
+      if (l < valid) {
+        ldg_vec<V>(F.sy + g, v);  // a pair: one read of sy for both tiles
+        tz.at<V>(F.sy, g, v, h);
+      }
+      if constexpr (KIND == XY_PAIR) st_vec<V>(y_smem + e, v);
+      st_vec<V>(y_smem + (tiles - 1) * count + e, h);
+    }
+  }
+  __syncthreads();
+
+  const int chains = nb << cshift;  // a tile's
+  const int lead = blockDim.x - tiles * chains;
+  if ((int)threadIdx.x >= lead) {
+    const int t = threadIdx.x - lead;
+    const int s = KIND == XY_PAIR && t >= chains;  // the tile, and its scheme
+    const int u = t - s * chains;
+    const int k = u >> cshift;
+    const Coef& c = a.cy[s];
+    float* line = y_smem + s * count + (u & (C - 1));  // line[m C] is row m of this column
+    auto nbr = [=](int m) {  // rows past the chain's own, wrapped around the column
+      const int mm = m < 0 ? m + ny : (m >= ny ? m - ny : m);
+      return line[mm << cshift];
+    };
+    const bool walls = !c.periodic;
+    solve_chain<K, false>(c, LineTab(a.taby[s], ny / nb, nb, k, a.hy[s], a.winy[s], c.periodic),
+                          nb, k, line, C, nbr, walls, walls, faces + s * 2 * nb * C + (u & (C - 1)),
+                          C, 0.f, 0.f, [=](int g, float v) { line[g << cshift] = v; });
+  } else {
+    for (int b = 0; b < CHAIN_BARRIERS; ++b) __syncthreads();
+  }
+  __syncthreads();
+
+  // the epilogue, row by row, coalesced: my Dy sy, Dy (T_z sy) + B_z bz
+  if (l >= valid) return;
+  auto advection = [&](int e, long long g) {
+    float w[V], v[V];
+    ldg_vec<V>(F.my + g, w);
+    for (int j = 0; j < V; ++j) v[j] = w[j] * y_smem[e + j];
+    st_vec<V>(F.out + g, v);
+  };
+  if constexpr (KIND == XY_ADV) {
+    for (int m = m0; m < ny; m += rows) advection((m << cshift) + l, base + (long long)m * nx + l);
+  } else {
+    const BzRow bz(a.zt, p, plane);
+    for (int m = m0; m < ny; m += rows) {
+      const int e = (m << cshift) + l;
+      const long long g = base + (long long)m * nx + l;
+      if constexpr (KIND == XY_PAIR) advection(e, g);
+      float w[V], v[V];
+      bz.at<V>(R.bz, g, w);
+      for (int j = 0; j < V; ++j) v[j] = y_smem[(tiles - 1) * count + e + j] + w[j];
+      st_vec<V>(R.out + g, v);
+    }
   }
 }
 
@@ -399,17 +619,10 @@ __host__ inline bool xy_valid(const XYArgs& a) {
       continue;
     }
     const bool rhs = !a.paired || k % 2 == 1;
-    ok = F.rhs == (int)rhs && (!a.paired || rhs || F.sx == a.fam[k + 1].sx);
+    ok = F.rhs == (int)rhs &&
+         (!a.paired || rhs || (F.sx == a.fam[k + 1].sx && F.sy == a.fam[k + 1].sy));
   }
   return ok;
-}
-
-// The y phase of every family of `a` on `s`.
-__host__ inline cudaError_t xy_y_launch(const XYArgs& a, cudaStream_t s) {
-  const long long cols = (long long)a.zt.nz * a.cx[0].n;
-  const dim3 ygrid((unsigned)((cols + XY_Y_THREADS - 1) / XY_Y_THREADS), a.nfam);
-  xy_y_kernel<<<ygrid, XY_Y_THREADS, 0, s>>>(a);
-  return cudaGetLastError();
 }
 
 // Both phases of a weighted launch `a` on `stream` (K8, K10), the x phase
@@ -445,13 +658,6 @@ __host__ inline int xy_launch(const XYArgs& a, void* stream) {
 // they are fewer than XY_CHAIN_STAGERS (a line with few chains: one on a
 // prime line, 14 at nx = 12278), whole warps before them help stage and
 // write back, and pass solve_chain's barriers on their own.
-enum XYChainKind { XY_RHS, XY_ADV, XY_PAIR };
-
-template <int KIND>
-__host__ __device__ constexpr int xy_chain_tiles() {
-  return KIND == XY_PAIR ? 2 : 1;
-}
-
 template <int K, int KIND>
 __global__ void __launch_bounds__(XY_CHAIN_THREADS)
     xy_chain_x_kernel(const __grid_constant__ XYArgs a, int lines_per_block) {
@@ -531,6 +737,69 @@ __host__ inline void xy_chain_x(const XYArgs& a, unsigned blocks, int per_block,
                                                                                       per_block);
 }
 
+// The y phase of every family of the chained launch `a` (of kind KIND) on
+// `s`: staged, C columns a block (XY_Y_COLS, halved while half of them
+// still covers the plane's nx, then while the block passes
+// XY_Y_MAX_THREADS or its shared memory the device's opt-in maximum), K
+// the chains' stencil width; with a.nby = 0 the column walk. A column
+// whose tiles pass the opt-in maximum returns cudaErrorInvalidValue.
+template <int KIND>
+__host__ inline cudaError_t xy_y_launch(const XYArgs& a, int K, cudaStream_t s) {
+  if (a.nby == 0) {
+    const long long cols = (long long)a.zt.nz * a.cx[0].n;
+    const dim3 ygrid((unsigned)((cols + XY_Y_THREADS - 1) / XY_Y_THREADS), a.nfam);
+    xy_y_walk_kernel<<<ygrid, XY_Y_THREADS, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  constexpr int tiles = xy_chain_tiles<KIND>();
+  const int ny = a.cy[0].n, nx = a.cx[0].n, nb = a.nby;
+  // per device: the dynamic shared memory these kernels have been opted in
+  // to (the device's per-block maximum)
+  static int optin[DIST_MAX_DEVICES];
+  const void* kernels[] = {(const void*)xy_y_kernel<1, KIND, 1>, (const void*)xy_y_kernel<2, KIND, 1>,
+                           (const void*)xy_y_kernel<3, KIND, 1>, (const void*)xy_y_kernel<1, KIND, 4>,
+                           (const void*)xy_y_kernel<2, KIND, 4>, (const void*)xy_y_kernel<3, KIND, 4>};
+  int limit;
+  cudaError_t err = dist_smem_limit(optin, kernels, 6, &limit);
+  if (err != cudaSuccess) return err;
+  int cshift = 0;
+  while ((1 << cshift) < XY_Y_COLS) ++cshift;
+  while (cshift > 0 && (1 << (cshift - 1)) >= nx) --cshift;
+  while (cshift > 0 && (tiles * nb << cshift > XY_Y_MAX_THREADS ||
+                        xy_y_bytes(ny, nb, tiles, 1 << cshift) > (size_t)limit)) {
+    --cshift;
+  }
+  const int C = 1 << cshift;
+  const size_t smem = xy_y_bytes(ny, nb, tiles, C);
+  const int chains = tiles * nb * C;
+  if (smem > (size_t)limit || chains > XY_Y_MAX_THREADS) return cudaErrorInvalidValue;
+  const int lead = chains < XY_Y_STAGERS ? (XY_Y_STAGERS - chains + 31) / 32 * 32 : 0;
+  const dim3 grid((unsigned)((long long)a.zt.nz * ((nx + C - 1) / C)), a.nfam / tiles);
+  // 16-byte accesses where every row of every field the families read or
+  // write starts on 16 bytes
+  uintptr_t ptrs = 0;
+  for (int k = 0; k < a.nfam; ++k) {
+    const XYFamily& F = a.fam[k];
+    ptrs |= (uintptr_t)F.sy | (uintptr_t)F.my | (uintptr_t)F.bz | (uintptr_t)F.out;
+  }
+  const bool v4 = C % 4 == 0 && nx % 4 == 0 && ptrs % 16 == 0;
+#define XY_Y_LAUNCH(k)                                                        \
+  if (v4) {                                                                   \
+    xy_y_kernel<k, KIND, 4><<<grid, lead + chains, smem, s>>>(a, cshift);     \
+  } else {                                                                    \
+    xy_y_kernel<k, KIND, 1><<<grid, lead + chains, smem, s>>>(a, cshift);     \
+  }
+  if (K == 1) {
+    XY_Y_LAUNCH(1);
+  } else if (K == 2) {
+    XY_Y_LAUNCH(2);
+  } else {
+    XY_Y_LAUNCH(3);
+  }
+#undef XY_Y_LAUNCH
+  return cudaGetLastError();
+}
+
 // Scheme s's chain table along x (ops/lane.py `chain_table`) for nb
 // sub-blocks a line, and its reduced rows' window (h, win), into `a`.
 __host__ inline void xy_chain_table(XYArgs& a, int s, const float* chx, int nb, int h, int win) {
@@ -538,6 +807,15 @@ __host__ inline void xy_chain_table(XYArgs& a, int s, const float* chx, int nb, 
   a.nb = nb;
   a.h[s] = h;
   a.win[s] = win;
+}
+
+// Scheme s's reduced rows' window (h, win) along y, for the nb sub-blocks
+// of a y-line whose chain table a.taby[s] is, into `a`; nb = 0 where
+// a.taby[s] is the scheme's per-point table and the y phase walks columns.
+__host__ inline void xy_y_chains(XYArgs& a, int s, int nb, int h, int win) {
+  a.nby = nb;
+  a.hy[s] = h;
+  a.winy[s] = win;
 }
 
 // Whether the families of `a` are of the chained kind KIND: every family
@@ -559,22 +837,30 @@ __host__ inline bool xy_chain_kind(const XYArgs& a) {
 // kind KIND (above): K6 and K9 (XY_RHS), K13 (XY_ADV), K3 and K5 (XY_PAIR).
 // `a.chx[s]`, `a.h[s]` and `a.win[s]` (xy_chain_table) describe the chain
 // table along x of each scheme s the families use, for `a.nb` sub-blocks a
-// line (a divisor of nx; at most XY_CHAIN_THREADS chains a line in all). A
-// block runs XY_CHAIN_THREADS / (nb tiles) lines, fewer until they fit 48
-// KB, at least one, in the device's opt-in maximum where one line passes 48
-// KB, with at least XY_CHAIN_STAGERS threads. Anything else, and a line
-// past that maximum, returns cudaErrorInvalidValue before either phase runs.
+// line (a divisor of nx; at most XY_CHAIN_THREADS chains a line in all);
+// `a.taby[s]`, `a.hy[s]` and `a.winy[s]` (xy_y_chains) its chain table
+// along y for `a.nby` sub-blocks a y-line (a divisor of ny), or its
+// per-point table with a.nby = 0 (xy_y_launch). An x block runs
+// XY_CHAIN_THREADS / (nb tiles) lines, fewer until they fit 48 KB, at least
+// one, in the device's opt-in maximum where one line passes 48 KB, with at
+// least XY_CHAIN_STAGERS threads. Anything else, and an x-line or a y
+// block's column past that maximum, returns cudaErrorInvalidValue before
+// either phase runs.
 template <int KIND>
 __host__ inline int xy_chain_launch(const XYArgs& a, void* stream) {
   constexpr int tiles = xy_chain_tiles<KIND>();
   const int nx = a.cx[0].n, nb = a.nb;
+  const int ny = a.cy[0].n, nby = a.nby;
   bool ok = xy_valid(a) && xy_chain_kind<KIND>(a) && nb >= 1 &&
-            tiles * nb <= XY_CHAIN_THREADS && nx % nb == 0;
+            tiles * nb <= XY_CHAIN_THREADS && nx % nb == 0 && nby >= 0 &&
+            tiles * nby <= XY_Y_MAX_THREADS && (nby == 0 || ny % nby == 0);
   int K = 0;
   for (int s = 0; ok && s < tiles; ++s) {
-    ok = a.chx[s] && a.win[s] >= 1 && a.win[s] <= 2 * nb && a.cx[s].K >= 1 &&
-         a.cx[s].K <= CFD_MAX_K;
-    K = a.cx[s].K > K ? a.cx[s].K : K;
+    ok = a.chx[s] && a.win[s] >= 1 && a.win[s] <= 2 * nb && a.taby[s] &&
+         (nby == 0 || (a.winy[s] >= 1 && a.winy[s] <= 2 * nby));
+    const int k = a.cx[s].K > a.cy[s].K ? a.cx[s].K : a.cy[s].K;
+    ok = ok && a.cx[s].K >= 1 && a.cy[s].K >= 1 && k <= CFD_MAX_K;
+    K = k > K ? k : K;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
   int per_block = XY_CHAIN_THREADS / (tiles * nb);
@@ -594,7 +880,7 @@ __host__ inline int xy_chain_launch(const XYArgs& a, void* stream) {
     if (smem > (size_t)limit) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t err = xy_y_launch(a, s);
+  const cudaError_t err = xy_y_launch<KIND>(a, K, s);
   if (err != cudaSuccess) return (int)err;
   const long long lines = (long long)a.zt.nz * a.cy[0].n;
   const unsigned blocks = (unsigned)((lines + per_block - 1) / per_block);

@@ -151,17 +151,17 @@ def library() -> ctypes.CDLL:
     f32 = ctypes.c_float
     lib.cfd_strided_rk.argtypes = [p] * 7 + [coef] + [f32] * 4 + [i64, i64, p]
     lib.cfd_strided_rk.restype = i32
-    lib.cfd_adv_lap.argtypes = [p] * 11 + [coef] * 4 + [i32] * 7 + [p]
+    lib.cfd_adv_lap.argtypes = [p] * 11 + [coef] * 4 + [i32] * 12 + [p]
     lib.cfd_adv_lap.restype = i32
-    lib.cfd_adv_lap3.argtypes = [p] * 15 + [coef] * 4 + [i32] * 7 + [p]
+    lib.cfd_adv_lap3.argtypes = [p] * 15 + [coef] * 4 + [i32] * 12 + [p]
     lib.cfd_adv_lap3.restype = i32
-    lib.cfd_div_rhs.argtypes = [p] * 8 + [coef] * 2 + [i32] * 5 + [p]
+    lib.cfd_div_rhs.argtypes = [p] * 8 + [coef] * 2 + [i32] * 8 + [p]
     lib.cfd_div_rhs.restype = i32
     lib.cfd_gradient_pair.argtypes = [p] * 5 + [coef] * 2 + [i64, p]
     lib.cfd_gradient_pair.restype = i32
     lib.cfd_d2_sum.argtypes = [p] * 4 + [coef] * 2 + [i64, p]
     lib.cfd_d2_sum.restype = i32
-    lib.cfd_lap_rhs.argtypes = [p] * 6 + [coef] * 2 + [i32] * 5 + [p]
+    lib.cfd_lap_rhs.argtypes = [p] * 6 + [coef] * 2 + [i32] * 8 + [p]
     lib.cfd_lap_rhs.restype = i32
     lib.cfd_curl_rhs.argtypes = [p] * 10 + [coef] * 2 + [i32, i32, p]
     lib.cfd_curl_rhs.restype = i32
@@ -173,7 +173,7 @@ def library() -> ctypes.CDLL:
     lib.cfd_lane_dist.restype = i32
     lib.cfd_strided_dist.argtypes = [p] * 6 + [coef, i64, i64, i32, i32, i32, p]
     lib.cfd_strided_dist.restype = i32
-    lib.cfd_adv_pair.argtypes = [p] * 6 + [coef] * 2 + [i32] * 4 + [p]
+    lib.cfd_adv_pair.argtypes = [p] * 6 + [coef] * 2 + [i32] * 7 + [p]
     lib.cfd_adv_pair.restype = i32
     lib.cfd_diag_copy.argtypes = [p, p] + [i64] * 7 + [p]
     lib.cfd_diag_copy.restype = i32

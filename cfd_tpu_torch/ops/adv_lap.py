@@ -34,7 +34,11 @@ past 48 KB a block, but ``adv_lap_fits`` and ``adv_lap3_fits`` keep the
 JAX package's limit of two staged lines within 48 KB (nx <= 6134), as its
 routing has it; the fused substep (``ops/fused_step.py``) decides its head
 by them. K9's x phase runs the same chains on T_z f. The chains are those
-``lane.line_nb`` cuts, on the chain tables ``lane`` caches for K1.
+``lane.line_nb`` cuts, on the chain tables ``lane`` caches for K1. The y
+phase of all three runs them too, down the y-lines of a block's columns
+staged in shared memory (K3 and K5: f and T_z f from one read), on the
+tables ``lane.y_tables`` gives, and walks one thread a column only where a
+column's tiles pass the card's shared memory (``lane.Y_WALKS``).
 
 ``LAUNCHES``, ``LAUNCHES3`` and ``LAP_LAUNCHES`` count calls that launched
 K3, K5 and K9 (each kernel's two phases count once); nothing but the launch
@@ -153,22 +157,23 @@ def adv_lap_rhs_ref(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: Comp
 
 
 def _pair_tables(shape, dz, dy, dx, scheme1, scheme2, dev):
-    """The table arguments of K3 and K5 (``cfd_adv_lap``, ``cfd_adv_lap3``):
-    the two schemes' line tables along y, their chain tables along x for
+    """The table arguments of K3 and K5 (``cfd_adv_lap``, ``cfd_adv_lap3``)
+    and the y phase's sub-blocks (0: the column walk): the two schemes'
+    tables along y (``lane.y_tables``), their chain tables along x for
     ``lane.line_nb(nx)`` sub-blocks, the z tables, the four Coefs, nz, W,
-    nb and each chain table's reduced window."""
+    each axis's sub-blocks and each chain table's reduced window."""
     nz, ny, nx = shape
     bt, tt = device_z_tables(scheme2, nz, float(dz), dev)
-    c1y, t1y = _native.launch_tables(scheme1, ny, float(dy), dev)
-    c2y, t2y = _native.launch_tables(scheme2, ny, float(dy), dev)
+    nby, ((c1y, t1y, hy1, winy1), (c2y, t2y, hy2, winy2)) = lane.y_tables(
+        (scheme1, scheme2), ny, dy, dev)
     nb = lane.line_nb(nx)
     c1x, ch1, h1, win1 = lane._chain_launch_tables(scheme1, nx, nb, float(dx), dev)
     c2x, ch2, h2, win2 = lane._chain_launch_tables(scheme2, nx, nb, float(dx), dev)
-    return (
+    return nby, (
         t1y.data_ptr(), t2y.data_ptr(), ch1.data_ptr(), ch2.data_ptr(),
         bt.data_ptr(), tt.data_ptr(),
         ctypes.byref(c1y), ctypes.byref(c2y), ctypes.byref(c1x), ctypes.byref(c2x),
-        nz, scheme2.stencil_width, nb, h1, win1, h2, win2,
+        nz, scheme2.stencil_width, nby, hy1, winy1, hy2, winy2, nb, h1, win1, h2, win2,
     )
 
 
@@ -191,14 +196,15 @@ def adv_lap_rhs(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactS
     _native.check_operands("adv_lap", f, ux, uy)
     axy = torch.empty_like(f)
     r = torch.empty_like(f)
+    nby, tables = _pair_tables(f.shape, dz, dy, dx, scheme1, scheme2, f.device)
     with torch.cuda.device(f.device):
         err = _native.library().cfd_adv_lap(
             f.data_ptr(), ux.data_ptr(), uy.data_ptr(), axy.data_ptr(), r.data_ptr(),
-            *_pair_tables(f.shape, dz, dy, dx, scheme1, scheme2, f.device),
-            torch.cuda.current_stream().cuda_stream,
+            *tables, torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "adv_lap")
     LAUNCHES += 1
+    lane.Y_WALKS += int(nby == 0)
     return axy, r
 
 
@@ -229,15 +235,16 @@ def adv_lap_rhs3(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
     _native.check_operands("adv_lap3", u0, u1, u2)
     axy = [torch.empty_like(u0) for _ in range(3)]
     r = [torch.empty_like(u0) for _ in range(3)]
+    nby, tables = _pair_tables(u0.shape, dz, dy, dx, scheme1, scheme2, u0.device)
     with torch.cuda.device(u0.device):
         err = _native.library().cfd_adv_lap3(
             u0.data_ptr(), u1.data_ptr(), u2.data_ptr(),
             *(a.data_ptr() for a in axy), *(a.data_ptr() for a in r),
-            *_pair_tables(u0.shape, dz, dy, dx, scheme1, scheme2, u0.device),
-            torch.cuda.current_stream().cuda_stream,
+            *tables, torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "adv_lap3")
     LAUNCHES3 += 1
+    lane.Y_WALKS += int(nby == 0)
     return tuple(axy), tuple(r)
 
 
@@ -283,7 +290,7 @@ def lap_rhs(f, dz, dy, dx, scheme: CompactScheme):
     nz, ny, nx = f.shape
     dev = f.device
     bt, tt = device_z_tables(scheme, nz, float(dz), dev)
-    cy, ty = _native.launch_tables(scheme, ny, float(dy), dev)
+    nby, ((cy, ty, hy, winy),) = lane.y_tables((scheme,), ny, dy, dev)
     nb = lane.line_nb(nx)
     cx, chx, h, win = lane._chain_launch_tables(scheme, nx, nb, float(dx), dev)
     r = torch.empty_like(f)
@@ -291,8 +298,9 @@ def lap_rhs(f, dz, dy, dx, scheme: CompactScheme):
         err = _native.library().cfd_lap_rhs(
             f.data_ptr(), r.data_ptr(), ty.data_ptr(), chx.data_ptr(), bt.data_ptr(),
             tt.data_ptr(), ctypes.byref(cy), ctypes.byref(cx), nz, scheme.stencil_width,
-            nb, h, win, torch.cuda.current_stream().cuda_stream,
+            nby, hy, winy, nb, h, win, torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "lap_rhs")
     LAP_LAUNCHES += 1
+    lane.Y_WALKS += int(nby == 0)
     return r

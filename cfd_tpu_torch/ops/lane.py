@@ -20,6 +20,12 @@ show that its path went through the kernel, and ``MODE_LAUNCHES`` the same
 launches by mode (``"derivative"`` or ``"filter"``); nothing but the launch
 adds to them. ``launch`` is the bare launch, with the kernel's ``acc``
 epilogue (``f' + acc``), for ``ops/pair.py``, which counts its own calls.
+
+The y phase of ``csrc/xy_phase.cuh`` (K3, K5, K6, K9, K13) runs the same
+chains down the y-lines of a block's columns, on the tables that
+``y_tables`` gives its wrappers. Where even one column's tiles pass the
+card's shared memory (a pair on y-lines of some 29,000 points) it walks
+one thread a column instead; ``Y_WALKS`` counts the launches that did.
 """
 
 from __future__ import annotations
@@ -35,12 +41,13 @@ from . import _native
 from .dense import dense_derivative
 
 __all__ = [
-    "LAUNCHES", "MODE_LAUNCHES", "chain_table", "launch", "lane_derivative",
-    "lane_derivative_ref", "line_nb",
+    "LAUNCHES", "MODE_LAUNCHES", "Y_WALKS", "chain_table", "launch", "lane_derivative",
+    "lane_derivative_ref", "line_nb", "y_tables", "y_tile_bytes",
 ]
 
 LAUNCHES = 0
 MODE_LAUNCHES = {"derivative": 0, "filter": 0}
+Y_WALKS = 0
 
 CHAIN_ROWS = 32  # the fewest rows of a chain
 CHAIN_MAX = 128  # the most chains line_nb gives a line
@@ -106,13 +113,39 @@ def chain_table(scheme: CompactScheme, n: int, nb: int):
 @functools.lru_cache(maxsize=64)
 def _chain_launch_tables(scheme: CompactScheme, n: int, nb: int, dx: float, device):
     """(Coef, float32 chain table on ``device``, h, win) for one launch of
-    K1, or of the x phase of K5, K6, K9 and K13 (``ops/adv_lap.py``,
+    K1, or of either phase of K3, K5, K6, K9 and K13 (``ops/adv_lap.py``,
     ``ops/vec.py``, ``ops/pair.py``), which run the same chains."""
     coef, _ = _native.kernel_tables(scheme, n)
     table, h, win = chain_table(scheme, n, nb)
     scale = (1.0 / dx) ** scheme.derivative_order
     return (_native.fill_coef(coef, scale),
             torch.as_tensor(table, dtype=torch.float32, device=device), h, win)
+
+
+def y_tile_bytes(ny: int, nb: int, tiles: int, cols: int = 1) -> int:
+    """The shared memory of a y-phase block of ``cols`` columns of ``ny``
+    rows in ``nb`` chains (``xy_y_bytes`` in ``csrc/xy_phase.cuh``):
+    ``tiles`` tiles (two for a pair) and each tile's 2 nb face slots a
+    column."""
+    return 4 * cols * tiles * (ny + 2 * nb)
+
+
+def y_tables(schemes, ny: int, dy, device):
+    """``(nb, [(Coef, float32 table on device, h, win) a scheme])``: what the
+    y phase of ``csrc/xy_phase.cuh`` reads for y-lines of ``ny`` points, one
+    tile a scheme of ``schemes`` (a pair's two, or one). Its staged chains
+    take ``nb = line_nb(ny)`` sub-blocks a y-line and each scheme's
+    ``chain_table``; where one column's tiles pass the shared memory a
+    block may take on ``device`` (``megastep.smem_limit``), ``nb`` is 0 and
+    each scheme's per-point table (h = win = 0) serves the column walk. Off
+    the card no limit holds."""
+    from .megastep import smem_limit
+
+    nb = line_nb(ny)
+    limit = smem_limit(device)
+    if limit is not None and y_tile_bytes(ny, nb, len(schemes)) > limit:
+        return 0, [(*_native.launch_tables(s, ny, float(dy), device), 0, 0) for s in schemes]
+    return nb, [_chain_launch_tables(s, ny, nb, float(dy), device) for s in schemes]
 
 
 def lane_derivative_ref(f: torch.Tensor, dx, scheme: CompactScheme) -> torch.Tensor:

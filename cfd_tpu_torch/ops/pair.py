@@ -20,7 +20,9 @@ The port of ``cfd_tpu/ops/pallas_pair.py``:
   substep (``ops/fused_step.py``) where K3 does not fit. On a CUDA float32
   tensor it launches K13 (``csrc/adv_pair.cu``, an advection family of
   ``csrc/xy_phase.cuh`` alone), whose x phase runs K1's sub-block chains
-  (``csrc/line_chains.cuh``) on the lines ``lane.line_nb`` cuts.
+  (``csrc/line_chains.cuh``) on the lines ``lane.line_nb`` cuts, and its
+  y phase the same chains down the y-lines of f staged in shared memory
+  (``lane.y_tables``).
 * ``pair_subtract``: the x and y components of ``u - grad(phi)`` in
   ``ops/poisson.project``'s compact form (``_pair_sub_kernel``). On a CUDA
   float32 tensor it launches K1 (``csrc/compact_lane.cu``) and K2
@@ -208,7 +210,7 @@ def advection_pair(f, ux, uy, dy, dx, scheme: CompactScheme):
         return advection_pair_ref(f, ux, uy, dy, dx, scheme)
     _native.check_operands("adv_pair", f, ux, uy)
     ny, nx = f.shape[-2:]
-    cy, ty = _native.launch_tables(scheme, ny, float(dy), f.device)
+    nby, ((cy, ty, hy, winy),) = lane.y_tables((scheme,), ny, dy, f.device)
     nb = lane.line_nb(nx)
     cx, chx, h, win = lane._chain_launch_tables(scheme, nx, nb, float(dx), f.device)
     planes = f.numel() // (ny * nx)
@@ -218,11 +220,12 @@ def advection_pair(f, ux, uy, dy, dx, scheme: CompactScheme):
     with torch.cuda.device(f.device):
         err = _native.library().cfd_adv_pair(
             f.data_ptr(), ux.data_ptr(), uy.data_ptr(), out.data_ptr(), ty.data_ptr(),
-            chx.data_ptr(), ctypes.byref(cy), ctypes.byref(cx), planes, nb, h, win,
-            torch.cuda.current_stream().cuda_stream,
+            chx.data_ptr(), ctypes.byref(cy), ctypes.byref(cx), planes, nby, hy, winy,
+            nb, h, win, torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "adv_pair")
     ADV_PAIR_LAUNCHES += 1
+    lane.Y_WALKS += int(nby == 0)
     return out
 
 

@@ -22,7 +22,8 @@ and rB along z. On CUDA float32 tensors ``div_rhs`` launches ``div_rhs``
 ``curl_rhs_ref``, the plain PyTorch versions, which apply the dense
 operators. K6's x phase runs K1's sub-block chains (``csrc/line_chains.cuh``)
 on the lines ``lane.line_nb`` cuts and the chain table ``lane`` caches for
-K1, as K9's does. Periodic d1 schemes only, as in the JAX package;
+K1, as K9's does, and its y phase the same chains down the y-lines of T_z
+uy staged in shared memory (``lane.y_tables``). Periodic d1 schemes only, as in the JAX package;
 ``div_fused_supported`` and ``curl_fused_supported`` say where ``"auto"``
 takes the fused divergence and curl, as their JAX namesakes do on the TPU
 (the TPU's VMEM slab condition becomes the card's
@@ -93,7 +94,7 @@ def div_rhs(ux, uy, uz, dz, dy, dx, scheme: CompactScheme):
     nz, ny, nx = ux.shape
     dev = ux.device
     bt, tt = device_z_tables(scheme, nz, float(dz), dev)
-    cy, ty = _native.launch_tables(scheme, ny, float(dy), dev)
+    nby, ((cy, ty, hy, winy),) = lane.y_tables((scheme,), ny, dy, dev)
     nb = lane.line_nb(nx)
     cx, chx, h, win = lane._chain_launch_tables(scheme, nx, nb, float(dx), dev)
     r = torch.empty_like(ux)
@@ -101,11 +102,12 @@ def div_rhs(ux, uy, uz, dz, dy, dx, scheme: CompactScheme):
         err = _native.library().cfd_div_rhs(
             ux.data_ptr(), uy.data_ptr(), uz.data_ptr(), r.data_ptr(),
             ty.data_ptr(), chx.data_ptr(), bt.data_ptr(), tt.data_ptr(),
-            ctypes.byref(cy), ctypes.byref(cx), nz, scheme.stencil_width, nb, h, win,
-            torch.cuda.current_stream().cuda_stream,
+            ctypes.byref(cy), ctypes.byref(cx), nz, scheme.stencil_width, nby, hy, winy,
+            nb, h, win, torch.cuda.current_stream().cuda_stream,
         )
     _native.check(err, "div_rhs")
     LAUNCHES += 1
+    lane.Y_WALKS += int(nby == 0)
     return r
 
 

@@ -182,6 +182,11 @@ script exits non-zero without printing the final line:
               and K6 at (64, 128, 8192) and 256^3 and of K5 at 256^3, by
               torch.profiler (after the scripts, which read profiler
               captures themselves).
+11. y_phase — the launches of K3, K5, K6, K9 and K13 on the paths above,
+              whose y phase ran as staged y-tile chains
+              (csrc/xy_phase.cuh xy_y_kernel), and lane.Y_WALKS, the y
+              phases that walked one thread a column instead over the whole
+              run: any such walk fails the run.
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -2550,6 +2555,13 @@ def main() -> None:
         long_times[key]["phases_ms"] = phases
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
+    # every launch of K3, K5, K6, K9 and K13 on the paths above ran the
+    # staged y phase of csrc/xy_phase.cuh: none walked columns
+    y_launches = sum(by_path[k] for by_path in launches.values()
+                     for k in ("adv_lap", "adv_lap3", "div_rhs", "lap_rhs", "adv_pair"))
+    emit({"phase": "y_phase", "launches_on_paths": y_launches, "column_walks": lane.Y_WALKS})
+    if lane.Y_WALKS:
+        raise AssertionError(f"{lane.Y_WALKS} y phases walked columns")
     emit({"kernels": _summary(stats, launches, times, dist_times, long_times, diag_out)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

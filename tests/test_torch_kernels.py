@@ -31,7 +31,7 @@ import torch
 
 import cfd_tpu_torch as ct
 from cfd_tpu_torch.models import (
-    Burgers, Derivs, NavierStokes, benchmark_field, coordinates, taylor_green,
+    AdvectionDiffusion, Burgers, Derivs, NavierStokes, benchmark_field, coordinates, taylor_green,
 )
 from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, megastep, pair, strided, vec
 from cfd_tpu_torch.schemes import rhs_matrix
@@ -844,3 +844,114 @@ def test_burgers_takes_the_stepwise_head_on_long_x_lines(cuda):
     want = Burgers(generic, nu=1e-2).step(u, 1e-4)
     scale = max(c.abs().max().item() for c in want)
     assert max((a - b).abs().max().item() for a, b in zip(got, want)) <= 1e-5 * scale
+
+
+# The staged y phase of csrc/xy_phase.cuh (xy_y_kernel), which K3, K5, K6,
+# K9 and K13 share: a 512 x 512 plane (16 chains of 32 rows a y-line; 16
+# columns a block for a pair, 32 for one tile), the long-x shape (64, 128,
+# 8192), a prime y-line (one chain), the fewest rows the schemes take (6),
+# and y-lines of 4096 points (128 chains: 2 columns a block for a pair,
+# one a thread at a time; 4 for one tile); ragged column blocks at nx = 40.
+# None walks columns.
+Y_PHASE_SHAPES = [(5, 512, 512), (64, 128, 8192), (5, 257, 40), (5, 6, 40), (5, 4096, 12)]
+Y_PHASE_KERNELS = ("K3", "K5", "K6", "K9", "K13")
+
+
+def _xy_kernel_pairs(kernel, u, u64, spacing):
+    """(got, plain float64) output pairs of one xy kernel on fields ``u``,
+    with the launch counter that counts it."""
+    (s1, s2), dz, dy, dx = FUSED[0], *spacing
+    if kernel == "K3":
+        got = adv_lap.adv_lap_rhs(u[2], u[0], u[1], dz, dy, dx, ct.SCHEME4, s2)
+        ref = adv_lap.adv_lap_rhs_ref(u64[2], u64[0], u64[1], dz, dy, dx, ct.SCHEME4, s2)
+        return list(zip(got, ref)), (adv_lap, "LAUNCHES")
+    if kernel == "K5":
+        got = adv_lap.adv_lap_rhs3(u, dz, dy, dx, s1, s2)
+        ref = adv_lap.adv_lap_rhs3_ref(u64, dz, dy, dx, s1, s2)
+        return list(zip(got[0] + got[1], ref[0] + ref[1])), (adv_lap, "LAUNCHES3")
+    if kernel == "K6":
+        got = vec.div_rhs(*u, dz, dy, dx, s1)
+        return [(got, vec.div_rhs_ref(*u64, dz, dy, dx, s1))], (vec, "LAUNCHES")
+    if kernel == "K9":
+        got = adv_lap.lap_rhs(u[0], dz, dy, dx, ct.SCHEME6_D2_PERIODIC)
+        ref = adv_lap.lap_rhs_ref(u64[0], dz, dy, dx, ct.SCHEME6_D2_PERIODIC)
+        return [(got, ref)], (adv_lap, "LAP_LAUNCHES")
+    got = pair.advection_pair(u[0], u[1], u[2], dy, dx, ct.SCHEME4)
+    ref = pair.advection_pair_ref(u64[0], u64[1], u64[2], dy, dx, ct.SCHEME4)
+    return [(got, ref)], (pair, "ADV_PAIR_LAUNCHES")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", Y_PHASE_SHAPES,
+                         ids=[f"{s}-nby{lane.line_nb(s[1])}" for s in Y_PHASE_SHAPES])
+@pytest.mark.parametrize("kernel", Y_PHASE_KERNELS)
+def test_staged_y_phase_matches_plain(cuda, kernel, shape):
+    g = torch.Generator(device="cpu").manual_seed(26)
+    u = tuple(torch.randn(shape, generator=g).to(cuda) for _ in range(3))
+    u64 = tuple(c.double() for c in u)
+    walks = lane.Y_WALKS
+    counted = {}
+    for module, name in ((adv_lap, "LAUNCHES"), (adv_lap, "LAUNCHES3"), (vec, "LAUNCHES"),
+                         (adv_lap, "LAP_LAUNCHES"), (pair, "ADV_PAIR_LAUNCHES")):
+        counted[module, name] = getattr(module, name)
+    outs, counter = _xy_kernel_pairs(kernel, u, u64, (0.04, 0.03, 0.02))
+    torch.cuda.synchronize()
+    assert getattr(*counter) == counted[counter] + 1
+    assert lane.Y_WALKS == walks
+    for got, want in outs:
+        assert _rel_err(got, want) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", Y_PHASE_KERNELS)
+def test_y_phase_walks_columns_past_the_shared_memory(cuda, kernel, monkeypatch):
+    """Prime y-lines of 29,059 points (one chain): a pair's two tiles of one
+    column and their faces take 232,488 bytes, past the opt-in maximum of
+    232,448 that the device reports, so K3 and K5 walk one thread a column
+    (``lane.Y_WALKS``); one tile (K6, K9, K13) takes half and is staged, a
+    column a block. Both forms match the plain versions, whose float64 y
+    derivative is here the banded solve of the same compact system
+    (``dense.dense_derivative`` along the last axis of the transposed
+    field: the dense 29,059-point operator takes minutes to build)."""
+    limit = megastep.smem_limit(cuda)
+    assert lane.y_tile_bytes(29059, 1, 1) <= limit < lane.y_tile_bytes(29059, 1, 2)
+    dense_derivative = dense.dense_derivative
+
+    def banded_y(f, d, scheme, axis):
+        if axis % f.ndim == f.ndim - 2:
+            return dense_derivative(f.transpose(-1, -2).contiguous(), d, scheme, -1).transpose(
+                -1, -2)
+        return dense_derivative(f, d, scheme, axis)
+
+    for module in (adv_lap, vec, pair):
+        monkeypatch.setattr(module, "dense_derivative", banded_y)
+    g = torch.Generator(device="cpu").manual_seed(27)
+    u = tuple(torch.randn((5, 29059, 8), generator=g).to(cuda) for _ in range(3))
+    walks = lane.Y_WALKS
+    outs, _ = _xy_kernel_pairs(kernel, u, tuple(c.double() for c in u), (0.04, 0.03, 0.02))
+    torch.cuda.synchronize()
+    assert lane.Y_WALKS == walks + (kernel in ("K3", "K5"))
+    for got, want in outs:
+        assert _rel_err(got, want) <= F32_GATE
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [256, 512])
+def test_model_paths_stage_every_y_phase(cuda, n):
+    """A Navier–Stokes step (K5, K6) at n^3, and at 256^3 an advection–
+    diffusion step (K3) and a Burgers step (K5): no y phase walks columns."""
+    c = [coordinates(n, device=cuda) for _ in range(3)]
+    u = taylor_green(*c)
+    dx, dt = 2 * math.pi / n, 0.25 * 2 * math.pi / n
+    walks, launches = lane.Y_WALKS, (adv_lap.LAUNCHES, adv_lap.LAUNCHES3, vec.LAUNCHES)
+    NavierStokes.single_device(dx, ct.SCHEME4_PERIODIC, nu=1 / 1600).step(u, dt)
+    want = [0, 3, 3]
+    if n == 256:
+        derivs = Derivs.single_device(dx, ct.SCHEME4_PERIODIC, "auto", second_derivative=True)
+        AdvectionDiffusion(derivs, nu=1e-3).step(u[0], u, dt)
+        Burgers(derivs, nu=1e-3).step(u, dt)
+        want = [3, 6, 3]
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip((adv_lap.LAUNCHES, adv_lap.LAUNCHES3, vec.LAUNCHES),
+                                  launches)] == want
+    assert lane.Y_WALKS == walks

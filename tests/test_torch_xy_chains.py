@@ -36,6 +36,31 @@ interpret mode at 512-point x-lines (the roll-form regime), at the
 smallest shapes those kernels take (y-lines a multiple of 128), at the
 tolerances of ``tests/test_torch_vec_calculus.py`` and
 ``tests/test_torch_stepwise.py``.
+
+The y phase (``xy_y_kernel``: staged y-tile sub-block chains) is held the
+same way, with both phases transcribed (``k9_staged``, ``k13_staged``):
+
+* the block sizing of ``xy_y_launch``: C = 32 columns a block, halved while
+  half of them still cover the plane's nx, then while the block would pass
+  512 threads (``tiles * line_nb(ny)`` chains a column) or its shared
+  memory (``lane.y_tile_bytes``) an H100's opt-in maximum; None (the
+  column walk) where one column does not fit; ``lane.y_tables``' choice of
+  the walk by the same bytes;
+* the staging: ``tile[m * C + l]`` is row m of the block's column l, of
+  ``sy`` (K13) or ``T_z sy`` (K9, ``TzRow.at``), 0 past the plane's last
+  column;
+* the solve: each staged column through ``_solve_chains`` on
+  ``lane.chain_table(scheme, ny, line_nb(ny))``, its RHS rows at the y
+  spacing;
+* the epilogue: each thread keeps its column and walks the rows, ``out =
+  my * tile`` (K13) or ``out = tile + B_z bz`` (K9, ``BzRow.at``'s
+  difference form), each valid element once.
+
+Against the same plain versions at the same gates, at y-lines of 512 (16
+chains of 32 rows), 256, 257 (one chain), 6 (the fewest rows the schemes
+take) and 4096 (128 chains: 4 columns a block, 2 for a pair, which moves
+one column a thread at a time), on 40 x-columns (a block of 32 and a
+ragged one of 8) or 12.
 """
 
 import functools
@@ -45,8 +70,8 @@ import pytest
 import torch
 
 import cfd_tpu_torch as ct
-from cfd_tpu_torch.ops import adv_lap, dense, lane, pair
-from test_torch_lane_chains import DX, _chains
+from cfd_tpu_torch.ops import adv_lap, dense, lane, megastep, pair
+from test_torch_lane_chains import DX, _chains, _rhs, _solve_chains
 
 K9_SCHEMES = {"SCHEME4_D2_PERIODIC": ct.SCHEME4_D2_PERIODIC,
               "SCHEME6_D2_PERIODIC": ct.SCHEME6_D2_PERIODIC}
@@ -59,9 +84,13 @@ F64_TOL = 1e-10
 F32_GATE = 1e-5  # the kernels' float32 gate, relative to max|ref|
 
 CHAIN_THREADS = 256  # XY_CHAIN_THREADS
-STAGERS = 128  # XY_CHAIN_STAGERS
+STAGERS = 128  # XY_CHAIN_STAGERS and XY_Y_STAGERS
 SMEM = 48 * 1024  # XY_X_SMEM: what a block stages without opting in
 TZROW_BYTES = 32  # sizeof(TzRow): three floats, padding, two long longs
+Y_COLS = 32  # XY_Y_COLS: the columns a y block takes where they fit
+Y_MAX_THREADS = 512  # XY_Y_MAX_THREADS
+SMEM_OPTIN = 232448  # an H100's cudaDevAttrMaxSharedMemoryPerBlockOptin
+Y_SHAPES = [(5, 512, 40), (5, 256, 40), (5, 257, 40), (5, 6, 40), (5, 4096, 12)]
 
 
 def _lines_per_block(n, nb, rhs):
@@ -169,6 +198,116 @@ def _x_phase(sx, out, mx, scheme, dtype):
         out.reshape(-1)[g] += v if mx is None else mx.reshape(-1)[g] * v
 
 
+def _y_block(ny, nx, tiles, limit=SMEM_OPTIN):
+    """``xy_y_launch``'s sizing of the staged y phase: (C, threads, shared
+    bytes) for ``tiles`` tiles a column, or None where one column does not
+    fit ``limit`` (the column walk)."""
+    nb = lane.line_nb(ny)
+    C = Y_COLS
+    while C > 1 and C // 2 >= nx:
+        C //= 2
+    while C > 1 and (tiles * nb * C > Y_MAX_THREADS or lane.y_tile_bytes(ny, nb, tiles, C) > limit):
+        C //= 2
+    nbytes = lane.y_tile_bytes(ny, nb, tiles, C)
+    return None if nbytes > limit else (C, _threads(tiles * nb * C), nbytes)
+
+
+def _bz(g, scheme, dz, dtype):
+    """B_z g as ``BzRow.at`` forms it: the sum over k != W of bt[p, k]
+    (g[p + k - W] - g[p]), planes wrapped, in ``dtype``."""
+    btab, _ = adv_lap.z_tables(scheme, g.shape[0])
+    bt = (btab / dz ** scheme.derivative_order).astype(dtype)
+    W = scheme.stencil_width
+    out = np.zeros_like(g)
+    for k in range(2 * W + 1):
+        if k != W:
+            out = out + bt[:, k, None, None] * (np.roll(g, W - k, 0) - g)
+    return out
+
+
+def _y_walk(ny, C, threads, V):
+    """Each thread's V columns from l and its rows m0, m0 + rows, ... of a
+    y block, in staging and the epilogue: (m, l) of every (thread, row)
+    below ny, each element of the tile in exactly one of them."""
+    t = np.arange(threads)
+    l, m0, rows = (t * V) % C, (t * V) // C, threads * V // C
+    m = np.concatenate([m0 + rows * j for j in range(-(-ny // rows))])
+    l = np.tile(l, -(-ny // rows))
+    live = m < ny
+    m, l = m[live], l[live]
+    seen = np.zeros((ny, C), int)
+    for j in range(V):
+        np.add.at(seen, (m, l + j), 1)
+    assert (seen == 1).all()
+    return m, l
+
+
+def y_phase(kind, sy, schemes, dz, dy, dtype, my=None, bz=None):
+    """The staged y phase of one family (``kind`` "adv" or "rhs") or pair
+    ("pair": ``schemes`` the d1 and the d2 scheme) of a launch on (nz, ny,
+    nx) fields, transcribed block by block: the advection output ``my *
+    Dy sy`` and/or the z-RHS output ``Dy (T_z sy) + B_z bz``, as a list.
+    Each thread moves V = 4 consecutive columns at a time where C and nx
+    are multiples of 4 (16-byte accesses: fields are aligned here), else
+    one."""
+    nz, ny, nx = sy.shape
+    tiles = 2 if kind == "pair" else 1
+    C, threads, _ = _y_block(ny, nx, tiles)
+    V = 4 if C % 4 == 0 and nx % 4 == 0 else 1
+    nb = lane.line_nb(ny)
+    sy = sy.astype(dtype)
+    # what each tile stages (a pair: both from one read of sy)
+    staged = [sy] if kind == "adv" else [sy, _tz(sy, schemes[-1], dtype)][2 - tiles:]
+    bzs = None if kind == "adv" else _bz(bz.astype(dtype), schemes[-1], dz, dtype)
+    my = None if my is None else my.astype(dtype)
+    outs = [np.full(sy.shape, np.nan, dtype) for _ in range(tiles)]
+    groups = -(-nx // C)
+    wm, wl = _y_walk(ny, C, threads, V)
+    for block in range(nz * groups):
+        p, x0 = block // groups, (block % groups) * C
+        valid = min(C, nx - x0)
+        assert valid % V == 0
+        tile = np.full(tiles * ny * C, np.nan, dtype)
+        for j in range(V):  # tile[m C + l]: row m of column l, 0 past nx
+            m, l = wm, wl + j
+            for s, src in enumerate(staged):
+                tile[s * ny * C + m * C + l] = np.where(
+                    wl < valid, src[p, m, np.minimum(x0 + l, nx - 1)], 0)
+        assert not np.isnan(tile).any()
+        for s, scheme in enumerate(schemes):  # each column a y-line
+            lines = tile[s * ny * C:(s + 1) * ny * C].reshape(ny, C).T
+            x = _solve_chains(_rhs(lines, scheme, dtype, dy), scheme, dtype, nb)
+            tile[s * ny * C:(s + 1) * ny * C] = x.T.ravel()
+        live = wl < valid  # the epilogue: a thread's V columns are all valid or none
+        for j in range(V):
+            m, l = wm[live], wl[live] + j
+            at, g = m * C + l, (p, m, x0 + l)
+            if kind != "rhs":
+                outs[0][g] = my[g] * tile[at]
+            if kind != "adv":
+                outs[-1][g] = tile[(tiles - 1) * ny * C + at] + bzs[g]
+    for out in outs:
+        assert not np.isnan(out).any()
+    return outs
+
+
+def k9_staged(f, dz, dy, scheme, dtype):
+    """K9 with both phases transcribed: the staged y phase, B_z f + D2y
+    (T_z f); then the chained x phase on T_z f."""
+    (out,) = y_phase("rhs", f, (scheme,), dz, dy, dtype, bz=f)
+    _x_phase(_tz(f.astype(dtype), scheme, dtype).reshape(-1, f.shape[-1]), out, None, scheme,
+             dtype)
+    return out
+
+
+def k13_staged(f, ux, uy, dy, scheme, dtype):
+    """K13 with both phases transcribed: the staged y phase, uy D1y f; then
+    the chained x phase on f, times ux."""
+    (out,) = y_phase("adv", f, (scheme,), None, dy, dtype, my=uy)
+    _x_phase(f.astype(dtype).reshape(-1, f.shape[-1]), out, ux.astype(dtype), scheme, dtype)
+    return out
+
+
 def k9_chained(f, dz, dy, scheme, dtype):
     """K9 with its x phase transcribed (x spacing DX): the y phase, B_z f +
     D2y (T_z f), from the plain version; then the chained x phase on T_z f."""
@@ -244,6 +383,65 @@ def test_advection_pair_chained_x_phase(name, shape):
     assert _rel(k13_chained(f, ux, uy, DY, scheme, np.float32), ref) <= F32_GATE
 
 
+def test_y_block_sizing():
+    # (ny, nx, tiles) -> (C, threads, bytes): tiles * line_nb(ny) * C chains,
+    # at most 1024 threads, the tiles within the opt-in maximum
+    want = {(512, 512, 2): (16, 512, 69632), (512, 512, 1): (32, 512, 69632),
+            (256, 256, 2): (32, 512, 69632), (256, 256, 1): (32, 256, 34816),
+            (128, 8192, 1): (32, 128, 17408), (257, 40, 2): (32, 128, 66304),
+            (6, 40, 2): (32, 128, 2048), (4096, 12, 2): (2, 512, 69632),
+            (4096, 12, 1): (4, 512, 69632), (512, 7, 1): (8, 128, 17408),
+            (29033, 8, 2): (1, 130, 232280), (29059, 8, 1): (1, 129, 116244)}
+    for (ny, nx, tiles), block in want.items():
+        assert _y_block(ny, nx, tiles) == block, (ny, nx, tiles)
+    assert _y_block(512, 512, 2)[2] > SMEM  # opted in at 512^3 and 256^3
+    assert _y_block(29059, 8, 2) is None  # a pair of one column's tiles: the column walk
+
+
+def test_y_tables_walk_only_where_a_column_does_not_fit(monkeypatch):
+    """``lane.y_tables`` takes the staged chains (``line_nb(ny)`` sub-blocks,
+    the chain tables) wherever one column's tiles fit the device's opt-in
+    maximum, here an H100's (``SMEM_OPTIN`` stands in for the device
+    query), and the column walk (nb = 0, the per-point tables) past it: a
+    pair on prime y-lines of 29,059 points. Off the card no limit holds."""
+    pair_schemes = (ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC)
+    cpu = torch.device("cpu")
+    assert lane.y_tables(pair_schemes, 29059, DY, cpu)[0] == 1
+    monkeypatch.setattr(megastep, "smem_limit", lambda device: SMEM_OPTIN)
+    for ny, tiles, nb in ((512, 2, 16), (512, 1, 16), (256, 2, 8), (29033, 2, 1),
+                          (29059, 2, 0), (29059, 1, 1)):
+        got, tables = lane.y_tables(pair_schemes[:tiles], ny, DY, cpu)
+        assert got == nb and (nb == 0) == (_y_block(ny, 8, tiles) is None), (ny, tiles)
+        for (coef, table, h, win), scheme in zip(tables, pair_schemes):
+            assert coef.n == ny and coef.scale == pytest.approx(DY ** -scheme.derivative_order)
+            if nb:
+                want, wh, wwin = lane.chain_table(scheme, ny, nb)
+                assert np.array_equal(table.numpy(), want.astype(np.float32))
+                assert (h, win) == (wh, wwin)
+            else:
+                assert tuple(table.shape) == (5, ny) and (h, win) == (0, 0)
+
+
+@pytest.mark.parametrize("shape", Y_SHAPES, ids=[f"{s}" for s in Y_SHAPES])
+@pytest.mark.parametrize("name", K9_SCHEMES)
+def test_lap_rhs_staged_y_phase(name, shape):
+    scheme = K9_SCHEMES[name]
+    (f,) = _fields(shape, 1, seed=shape[1] + len(name))
+    ref = adv_lap.lap_rhs_ref(torch.from_numpy(f), DZ, DY, DX, scheme).numpy()
+    assert _rel(k9_staged(f, DZ, DY, scheme, np.float64), ref) <= F64_TOL
+    assert _rel(k9_staged(f, DZ, DY, scheme, np.float32), ref) <= F32_GATE
+
+
+@pytest.mark.parametrize("shape", Y_SHAPES, ids=[f"{s}" for s in Y_SHAPES])
+@pytest.mark.parametrize("name", K13_SCHEMES)
+def test_advection_pair_staged_y_phase(name, shape):
+    scheme = K13_SCHEMES[name]
+    f, ux, uy = _fields(shape, 3, seed=shape[1] + 2 * len(name))
+    ref = pair.advection_pair_ref(*map(torch.from_numpy, (f, ux, uy)), DY, DX, scheme).numpy()
+    assert _rel(k13_staged(f, ux, uy, DY, scheme, np.float64), ref) <= F64_TOL
+    assert _rel(k13_staged(f, ux, uy, DY, scheme, np.float32), ref) <= F32_GATE
+
+
 @pytest.mark.parametrize("name", K9_SCHEMES)
 def test_lap_rhs_ref_matches_pallas_interpret_on_512_point_lines(name):
     """``tests/test_torch_vec_calculus.py``'s tolerance (2e-5) at the
@@ -289,3 +487,16 @@ if __name__ == "__main__":
                                           scheme).numpy()
             err = _rel(k13_chained(f, ux, uy, DY, scheme, np.float32), ref)
             print(f"K13 {name} {shape}: {err:.3e}")
+    for name, scheme in K9_SCHEMES.items():
+        for shape in Y_SHAPES:
+            (f,) = _fields(shape, 1, seed=shape[1] + len(name))
+            ref = adv_lap.lap_rhs_ref(torch.from_numpy(f), DZ, DY, DX, scheme).numpy()
+            print(f"K9 staged y {name} {shape}: "
+                  f"{_rel(k9_staged(f, DZ, DY, scheme, np.float32), ref):.3e}")
+    for name, scheme in K13_SCHEMES.items():
+        for shape in Y_SHAPES:
+            f, ux, uy = _fields(shape, 3, seed=shape[1] + 2 * len(name))
+            ref = pair.advection_pair_ref(*map(torch.from_numpy, (f, ux, uy)), DY, DX,
+                                          scheme).numpy()
+            err = _rel(k13_staged(f, ux, uy, DY, scheme, np.float32), ref)
+            print(f"K13 staged y {name} {shape}: {err:.3e}")

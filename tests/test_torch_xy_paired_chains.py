@@ -28,6 +28,16 @@ the y phase of the plain version:
   it for each component, advected by u0 and u1); against
   ``adv_lap.adv_lap_rhs_ref``, for the same pairs.
 
+With the y phase transcribed too (``tests/test_torch_xy_chains.py``'s
+``y_phase``: the staged y-tile sub-block chains of ``xy_y_kernel``): K6
+stages T_z uy in one tile and writes ``tile + B_z uz``; K5 and K3 stage,
+from one read of each element of u_i (f), u_i into the first tile and T_z
+u_i into the second (two tiles: half the columns a block of one tile where
+the threads or the shared memory bind), solve the first on the d1
+scheme's y chain table and the second on the d2 scheme's, and write ``u1
+* tile`` (``uy * tile``) and ``tile + B_z u_i``; at y-lines of 512, 256,
+257, 6 and 4096 (2 columns a block for a pair).
+
 Gates: 1e-10 of max|ref| in float64, within 1e-5 in float32 (each output
 against its own max|ref|). K6 at x-lines of 8192, 512, 256, 257 (one
 chain) and 12278 (opted-in shared memory), K5 at 256, 512, 257 and 6134
@@ -47,8 +57,8 @@ import cfd_tpu_torch as ct
 from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, vec
 from test_torch_lane_chains import DX, _chains
 from test_torch_xy_chains import (
-    CHAIN_THREADS, F32_GATE, F64_TOL, SMEM, TZROW_BYTES, _check_walk, _fields,
-    _rel, _threads, _tz, _x_phase,
+    CHAIN_THREADS, F32_GATE, F64_TOL, SMEM, TZROW_BYTES, Y_SHAPES, _check_walk, _fields,
+    _rel, _threads, _tz, _x_phase, y_phase,
 )
 
 DZ, DY = 0.07, 0.03
@@ -151,6 +161,34 @@ def k5_chained(u, dz, dy, s1, s2, dtype):
     return [o[0] for o in outs], [o[1] for o in outs]
 
 
+def k6_staged(ux, uy, uz, dz, dy, scheme, dtype):
+    """K6 with both phases transcribed: the staged y phase, B_z uz + D1y
+    (T_z uy); then K9's chained x phase on T_z ux."""
+    (out,) = y_phase("rhs", uy, (scheme,), dz, dy, dtype, bz=uz)
+    _x_phase(_tz(ux.astype(dtype), scheme, dtype).reshape(-1, ux.shape[-1]), out, None, scheme,
+             dtype)
+    return out
+
+
+def k3_staged(f, ux, uy, dz, dy, s1, s2, dtype):
+    """K3 with both phases transcribed: the staged paired y phase, uy D1y f
+    and B_z f + D2y (T_z f) from one read of f; then the paired chained x
+    phase on f and T_z f, advected by ux."""
+    a, r = y_phase("pair", f, (s1, s2), dz, dy, dtype, my=uy, bz=f)
+    n = f.shape[-1]
+    f = f.astype(dtype)
+    _pair_x_phase(f.reshape(-1, n), _tz(f, s2, dtype).reshape(-1, n), a, r, ux.astype(dtype), s1,
+                  s2, dtype)
+    return a, r
+
+
+def k5_staged(u, dz, dy, s1, s2, dtype):
+    """K5 with both phases transcribed: K3's launch on each component u_i,
+    advected by u0 and u1 (one grid row a component in both phases)."""
+    outs = [k3_staged(c, u[0], u[1], dz, dy, s1, s2, dtype) for c in u]
+    return [o[0] for o in outs], [o[1] for o in outs]
+
+
 def test_pair_lines_per_block():
     # (n) -> (nb, L, threads, shared bytes): 2 L nb chains, at most 256
     want = {256: (8, 16, 256), 512: (16, 8, 256), 257: (1, 22, 140), 6134: (2, 1, 132)}
@@ -192,6 +230,39 @@ def test_adv_lap_rhs_paired_chained_x_phase(name, shape):
     ref = adv_lap.adv_lap_rhs_ref(*map(torch.from_numpy, (f, ux, uy)), DZ, DY, DX, s1, s2)
     for dtype, gate in ((np.float64, F64_TOL), (np.float32, F32_GATE)):
         for got, want in zip(k3_chained(f, ux, uy, DZ, DY, s1, s2, dtype), ref):
+            assert _rel(got, want.numpy()) <= gate
+
+
+@pytest.mark.parametrize("shape", Y_SHAPES, ids=[f"{s}" for s in Y_SHAPES])
+@pytest.mark.parametrize("name", K6_SCHEMES)
+def test_div_rhs_staged_y_phase(name, shape):
+    scheme = K6_SCHEMES[name]
+    ux, uy, uz = _fields(shape, 3, seed=shape[1] + 3 * len(name))
+    ref = vec.div_rhs_ref(*map(torch.from_numpy, (ux, uy, uz)), DZ, DY, DX, scheme).numpy()
+    assert _rel(k6_staged(ux, uy, uz, DZ, DY, scheme, np.float64), ref) <= F64_TOL
+    assert _rel(k6_staged(ux, uy, uz, DZ, DY, scheme, np.float32), ref) <= F32_GATE
+
+
+@pytest.mark.parametrize("shape", Y_SHAPES, ids=[f"{s}" for s in Y_SHAPES])
+@pytest.mark.parametrize("name", K5_PAIRS)
+def test_adv_lap_rhs3_staged_paired_y_phase(name, shape):
+    s1, s2 = K5_PAIRS[name]
+    u = _fields(shape, 3, seed=shape[1] + 5 * len(name))
+    refs = adv_lap.adv_lap_rhs3_ref(tuple(map(torch.from_numpy, u)), DZ, DY, DX, s1, s2)
+    for dtype, gate in ((np.float64, F64_TOL), (np.float32, F32_GATE)):
+        axy, r = k5_staged(u, DZ, DY, s1, s2, dtype)
+        for got, ref in zip(axy + r, refs[0] + refs[1]):
+            assert _rel(got, ref.numpy()) <= gate
+
+
+@pytest.mark.parametrize("shape", Y_SHAPES, ids=[f"{s}" for s in Y_SHAPES])
+@pytest.mark.parametrize("name", K5_PAIRS)
+def test_adv_lap_rhs_staged_paired_y_phase(name, shape):
+    s1, s2 = K5_PAIRS[name]
+    f, ux, uy = _fields(shape, 3, seed=shape[1] + 11 * len(name))
+    ref = adv_lap.adv_lap_rhs_ref(*map(torch.from_numpy, (f, ux, uy)), DZ, DY, DX, s1, s2)
+    for dtype, gate in ((np.float64, F64_TOL), (np.float32, F32_GATE)):
+        for got, want in zip(k3_staged(f, ux, uy, DZ, DY, s1, s2, dtype), ref):
             assert _rel(got, want.numpy()) <= gate
 
 
@@ -262,3 +333,16 @@ if __name__ == "__main__":
             axy, r = k5_chained(u, DZ, DY, s1, s2, np.float32)
             err = max(_rel(g, f.numpy()) for g, f in zip(axy + r, refs[0] + refs[1]))
             print(f"K5 {name} {shape}: {err:.3e}")
+    for name, scheme in K6_SCHEMES.items():
+        for shape in Y_SHAPES:
+            u = _fields(shape, 3, seed=shape[1] + 3 * len(name))
+            ref = vec.div_rhs_ref(*map(torch.from_numpy, u), DZ, DY, DX, scheme).numpy()
+            print(f"K6 staged y {name} {shape}: "
+                  f"{_rel(k6_staged(*u, DZ, DY, scheme, np.float32), ref):.3e}")
+    for name, (s1, s2) in K5_PAIRS.items():
+        for shape in Y_SHAPES:
+            u = _fields(shape, 3, seed=shape[1] + 5 * len(name))
+            refs = adv_lap.adv_lap_rhs3_ref(tuple(map(torch.from_numpy, u)), DZ, DY, DX, s1, s2)
+            axy, r = k5_staged(u, DZ, DY, s1, s2, np.float32)
+            err = max(_rel(g, f.numpy()) for g, f in zip(axy + r, refs[0] + refs[1]))
+            print(f"K5 staged y {name} {shape}: {err:.3e}")
