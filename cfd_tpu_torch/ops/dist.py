@@ -39,8 +39,14 @@ sub-block's Thomas chain, joined by an intra-shard reduced solve
 
 On a CPU tensor each returns its plain version (``*_ref``): the stencil
 over the halo-extended line (``ops/rhs.py``), the shard's dense
-``T_r^{-1}`` and the update. ``LAUNCHES`` counts kernel launches by kernel;
-nothing but a launch adds to it.
+``T_r^{-1}`` and the update. ``LAUNCHES`` counts kernel launches by kernel:
+a launch adds to it, and so does a replay of a CUDA graph, by the launches
+its captured call made (``parallel/graphs.py``); the capture itself adds
+nothing. ``PEER_COPIES`` counts the distributed layer's copies between two
+devices (``parallel/mesh.py``'s ``ppermute`` and ``all_gather``) and their
+bytes, a replay those of its captured call; a shard that stays on its
+device adds nothing. It lives here, beside ``LAUNCHES``, where the
+benchmark's counter reader looks.
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from .rhs import shard_rhs
 
 __all__ = [
     "LAUNCHES",
+    "PEER_COPIES",
     "ShardBlock",
     "require_full_f32",
     "lane_dist_supported",
@@ -74,6 +81,7 @@ __all__ = [
 ]
 
 LAUNCHES = {"lane_dist": 0, "strided_dist": 0, "strided_dist_lines": 0}
+PEER_COPIES = {"copies": 0, "bytes": 0}
 
 _LANE = 128
 

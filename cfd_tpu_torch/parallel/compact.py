@@ -31,7 +31,9 @@ held against its JAX counterpart:
   x and y, ``leading_dist_supported`` for z, with the JAX leading kernel's
   ``pick_nb(nl) >= 2`` for ``"auto"``): halos along the native axis, faces
   from truncated functionals, the reduced solve, then one K11 (x) or K12
-  (y, z) launch per shard with the interface update in its store;
+  (y, z) launch per shard with the interface update in its store; where
+  the shards lie on several CUDA devices the solver replays the call from
+  one CUDA graph over them (``parallel/graphs.py``);
 * the generic route: lines moved to axis 0, halo/ghost rows, the local
   solve by ``"pcr"`` (``"thomas"`` is its alias), ``"matmul"`` (the
   shard's dense ``T_r^{-1}``) or ``"kernel"`` (K12 without the update, the
@@ -64,6 +66,7 @@ from ..ops import dist, tridiag
 from ..ops.rhs import closure_ghosts, shard_rhs
 from ..schemes import CompactScheme, lhs_bands
 from .dist_tables import pick_nb, shard_blocks, shard_kernel_tables, shard_table
+from .graphs import Replays, replayable
 from .halo import halo_slices
 from .mesh import AXIS_NAMES, Grid, Sharded, all_gather
 from .phipsi import phipsi_lines, phipsi_tables
@@ -262,12 +265,13 @@ def _phase_local_solve(lines, left, right, *, scheme, axis, p, n, inv_dx, method
     return rhs.map(solve, coords=True)
 
 
-def _reduced_from_faces(face_f: Sharded, face_l: Sharded, rinv_rows: np.ndarray, *,
-                        scheme, axis: int, p: int) -> Sharded:
+def _reduced_from_faces(face_f: Sharded, face_l: Sharded, tables, *, scheme, axis: int,
+                        p: int) -> Sharded:
     """Negate the interface faces (zero at physical ends), all_gather them
     over the line and apply this shard's two rows of the reduced-matrix
-    inverse: (2, *batch) weights (alpha, beta) per shard, in float64 (the
-    faces are a sliver of the field; the weights set every shard boundary)."""
+    inverse (``tables.rinv_rows``, cached on the shard's device): (2, *batch)
+    weights (alpha, beta) per shard, in float64 (the faces are a sliver of
+    the field; the weights set every shard boundary)."""
     def stack(coord, ff, fl):
         zero_f = not scheme.periodic and coord[axis] == 0
         zero_l = not scheme.periodic and coord[axis] == p - 1
@@ -277,7 +281,7 @@ def _reduced_from_faces(face_f: Sharded, face_l: Sharded, rinv_rows: np.ndarray,
     gathered = all_gather(face_f.map(stack, face_l, coords=True), axis)  # (2p, *batch)
 
     def solve(coord, g):
-        rows = torch.as_tensor(rinv_rows[coord[axis]], dtype=g.dtype, device=g.device)
+        rows = shard_table(tables, "rinv_rows", coord[axis], g.dtype, g.device)
         return (rows @ g.reshape(2 * p, -1)).reshape((2,) + g.shape[1:])
 
     return gathered.map(solve, coords=True)
@@ -306,8 +310,8 @@ def _dist_lines(lines: Sharded, *, scheme, axis, p, n, inv_dx, method) -> Sharde
     x_r = _phase_local_solve(lines, left, right, scheme=scheme, axis=axis, p=p, n=n,
                              inv_dx=inv_dx, method=method)
     tables = direction_tables(scheme, n, p)
-    ab = _reduced_from_faces(x_r.map(lambda x: x[0]), x_r.map(lambda x: x[-1]),
-                             tables.rinv_rows, scheme=scheme, axis=axis, p=p)
+    ab = _reduced_from_faces(x_r.map(lambda x: x[0]), x_r.map(lambda x: x[-1]), tables,
+                             scheme=scheme, axis=axis, p=p)
     return _phase_update(x_r, ab, tables, axis)
 
 
@@ -378,8 +382,8 @@ def dist_fast(f: Sharded, axis: int, *, scheme: CompactScheme, n: int, p: int, d
     kw = dict(scheme=scheme, n=n, p=p, inv_dx=1.0 / dx)
     left, right = _halo_ghosts(f, scheme=scheme, axis=axis, p=p, dim=axis - 3)
     faces = _dist_faces(f, left, right, axis, **kw)
-    ab = _reduced_from_faces(*faces, shard_kernel_tables(scheme, n, p).rinv_rows,
-                             scheme=scheme, axis=axis, p=p)
+    ab = _reduced_from_faces(*faces, shard_kernel_tables(scheme, n, p), scheme=scheme,
+                             axis=axis, p=p)
     return _dist_kernels(f, left, right, ab, axis, **kw)
 
 
@@ -405,6 +409,7 @@ class DistributedCompactSolver:
             raise ValueError(f"method {method!r} is not supported on the distributed path")
         self.grid = grid
         self.method = method
+        self._replays = Replays()
 
     def route(self, f: Sharded, axis: int) -> str:
         """The route a derivative of ``f`` along ``axis`` (0 = z, 1 = y, 2 =
@@ -448,7 +453,8 @@ class DistributedCompactSolver:
             return f.map(lambda fl: single.derivative(fl, dx, scheme, axis=axis - 3,
                                                       method=method))
         if route == "fast":
-            return dist_fast(f, axis, scheme=scheme, n=n, p=p, dx=dx)
+            fast = functools.partial(dist_fast, axis=axis, scheme=scheme, n=n, p=p, dx=dx)
+            return self._replays(fast, f, axis) if replayable(f) else fast(f)
         lines = f.map(lambda fl: fl.movedim(axis - 3, 0))
         out = _dist_lines(lines, scheme=scheme, axis=axis, p=p, n=n, inv_dx=1.0 / dx,
                           method=route)

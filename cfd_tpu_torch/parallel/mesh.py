@@ -18,7 +18,10 @@ data between shards. The port is a single process too:
   so a model's RK3 arithmetic is one code for a tensor and a ``Sharded``.
 * ``ppermute`` moves a neighbour's slab to each shard with ``.to(device)``
   (a no-op, not a copy, where both shards share a device); ``all_gather``
-  concatenates a mesh line's values on each shard's device.
+  concatenates a mesh line's values on each shard's device. Each copy
+  between two devices adds to ``ops.dist.PEER_COPIES``. PyTorch orders a
+  copy between cards on both cards' current streams, with no wait on the
+  host.
 
 ``Grid`` is the distributed grid: global shape, spacing, scheme and mesh,
 with ``distribute``/``gather`` between a whole field and its shards.
@@ -33,6 +36,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.dist import PEER_COPIES
 from ..schemes import SCHEME4, CompactScheme
 
 __all__ = [
@@ -168,6 +172,14 @@ class Sharded:
         return f"Sharded(shape={self.shape}, mesh={self.mesh.shape}, dtype={self.dtype})"
 
 
+def _moved(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; a copy from another device is counted."""
+    if t.device != device:
+        PEER_COPIES["copies"] += 1
+        PEER_COPIES["bytes"] += t.numel() * t.element_size()
+    return t.to(device)
+
+
 def ppermute(x: Sharded, axis, shift: int, periodic: bool) -> Sharded:
     """Each shard receives the value of the shard ``shift`` places before it
     along mesh ``axis`` (wrapping when ``periodic``), moved to its device;
@@ -182,7 +194,7 @@ def ppermute(x: Sharded, axis, shift: int, periodic: bool) -> Sharded:
         if 0 <= src < p:
             c = list(coord)
             c[ax] = src
-            out.append(x[c].to(x.mesh.device(coord)))
+            out.append(_moved(x[c], x.mesh.device(coord)))
         else:
             out.append(torch.zeros_like(x.shards[i]))
     return Sharded(x.mesh, out)
@@ -200,7 +212,7 @@ def all_gather(x: Sharded, axis) -> Sharded:
         for r in range(x.mesh.shape[ax]):
             c = list(coord)
             c[ax] = r
-            line.append(x[c].to(dev))
+            line.append(_moved(x[c], dev))
         out.append(torch.cat(line))
     return Sharded(x.mesh, out)
 
