@@ -42,11 +42,15 @@ over the halo-extended line (``ops/rhs.py``), the shard's dense
 ``T_r^{-1}`` and the update. ``LAUNCHES`` counts kernel launches by kernel:
 a launch adds to it, and so does a replay of a CUDA graph, by the launches
 its captured call made (``parallel/graphs.py``); the capture itself adds
-nothing. ``PEER_COPIES`` counts the distributed layer's copies between two
-devices (``parallel/mesh.py``'s ``ppermute`` and ``all_gather``) and their
-bytes, a replay those of its captured call; a shard that stays on its
-device adds nothing. It lives here, beside ``LAUNCHES``, where the
-benchmark's counter reader looks.
+nothing. The fast path's graph holds its exchange alone: K11 and K12 run
+after the replay and count their own launches.
+``PEER_COPIES`` counts the distributed layer's copies between two devices
+(``parallel/mesh.py``'s ``ppermute`` and ``all_gather``) and their bytes, a
+replay those of its captured call; a shard that stays on its device adds
+nothing. ``STAGED`` counts the replays of the fast path's exchange and the
+bytes each copied into its graph's input buffers (the shards' end slabs,
+``parallel/graphs.py``'s ``stage_ends``), summed over the cards. Both live
+here, beside ``LAUNCHES``, where the benchmark's counter reader looks.
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ from .rhs import shard_rhs
 __all__ = [
     "LAUNCHES",
     "PEER_COPIES",
+    "STAGED",
     "ShardBlock",
     "require_full_f32",
     "lane_dist_supported",
@@ -82,6 +87,7 @@ __all__ = [
 
 LAUNCHES = {"lane_dist": 0, "strided_dist": 0, "strided_dist_lines": 0}
 PEER_COPIES = {"copies": 0, "bytes": 0}
+STAGED = {"replays": 0, "bytes": 0}
 
 _LANE = 128
 

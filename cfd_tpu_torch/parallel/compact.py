@@ -29,11 +29,19 @@ held against its JAX counterpart:
 * the fast path (``"auto"`` on CUDA float32, and ``"kernel"``, where the
   dist kernels take the shard shape: ``ops/dist.lane_dist_supported`` for
   x and y, ``leading_dist_supported`` for z, with the JAX leading kernel's
-  ``pick_nb(nl) >= 2`` for ``"auto"``): halos along the native axis, faces
-  from truncated functionals, the reduced solve, then one K11 (x) or K12
-  (y, z) launch per shard with the interface update in its store; where
-  the shards lie on several CUDA devices the solver replays the call from
-  one CUDA graph over them (``parallel/graphs.py``);
+  ``pick_nb(nl) >= 2`` for ``"auto"``), in two parts. The exchange
+  (``dist_exchange``): halos along the native axis, faces from truncated
+  functionals, their gather, the reduced solve, and the weights cast to the
+  field's dtype and laid out for the kernels. It reads only ``L' = max(K +
+  w, m, w)`` points at each end of a shard's line (the faces' slabs, the
+  closure ghosts, the halos; ``ends_width``, from the scheme's tables), so
+  it runs alike on the field and on its two end slabs. Then the kernels: one
+  K11 (x) or K12 (y, z) launch per shard on the field, with the interface
+  update in its store. Where the shards lie on several CUDA devices the
+  solver replays the exchange from one CUDA graph over them, fed the end
+  slabs, and launches the kernels on the caller's field after it
+  (``parallel/graphs.py``, ``dist_replayed``); elsewhere the exchange reads
+  the field itself (``dist_fast``);
 * the generic route: lines moved to axis 0, halo/ghost rows, the local
   solve by ``"pcr"`` (``"thomas"`` is its alias), ``"matmul"`` (the
   shard's dense ``T_r^{-1}``) or ``"kernel"`` (K12 without the update, the
@@ -193,17 +201,40 @@ def direction_tables(scheme: CompactScheme, n: int, p: int) -> DirectionTables:
     return DirectionTables(**stack, uh=uh, lh=lh, rinv_rows=rinv_rows)
 
 
+def _ghost_rows(scheme: CompactScheme, nl: int) -> int:
+    """The rows the closure ghosts read at each end of an ``nl``-point line."""
+    m = max((len(r.rhs_stencil) for r in scheme.left_rows + scheme.right_rows), default=0)
+    return min(nl, max(m, scheme.n_closure + scheme.stencil_width) + 1)
+
+
+def end_reads(scheme: CompactScheme, n: int, p: int) -> dict:
+    """The points the exchange reads at each end of a shard's ``n / p``-point
+    line: the faces' slabs (K + w), the closure ghosts (m), the halos (w)."""
+    w = scheme.stencil_width
+    return {"faces": shard_kernel_tables(scheme, n, p).K + w,
+            "ghosts": _ghost_rows(scheme, n // p), "halos": w}
+
+
+@functools.lru_cache(maxsize=None)
+def ends_width(scheme: CompactScheme, n: int, p: int) -> int:
+    """``L'``, the largest of ``end_reads``: the exchange of a shard reads
+    its first and last ``L'`` points along the line and nothing between; the
+    whole line ``n / p`` where the two ends cover it."""
+    nl = n // p
+    width = max(end_reads(scheme, n, p).values())
+    return nl if 2 * width >= nl else width
+
+
 def _halo_ghosts(x: Sharded, *, scheme: CompactScheme, axis: int, p: int, dim: int = 0):
     """Halo slabs of depth w along ``dim`` from the neighbours on mesh
     ``axis``, closure ghosts at a non-periodic line's physical ends; both
     contiguous. Only the slabs move; the ghosts are built from the end
-    shard's two end slabs, moved to axis 0."""
+    shard's two end slabs, moved to axis 0. ``x`` may be the shards' end
+    slabs (``ends_width``): only its first and last m rows are read."""
     w = scheme.stencil_width
     left, right = halo_slices(x, AXIS_NAMES[axis], w, scheme.periodic, dim)
     nl = x.local_shape[dim]
-    # ghost construction reads at most m rows from each end
-    m = max((len(r.rhs_stencil) for r in scheme.left_rows + scheme.right_rows), default=0)
-    m = min(nl, max(m, scheme.n_closure + w) + 1)
+    m = _ghost_rows(scheme, nl)
 
     def fix(coord, fl, lo, hi):
         rank = coord[axis]
@@ -354,37 +385,66 @@ def _dist_faces(f: Sharded, left: Sharded, right: Sharded, axis: int, *, scheme,
     return f.map(faces, left, right, coords=True).unzip()
 
 
-def _dist_kernels(f: Sharded, left: Sharded, right: Sharded, ab: Sharded, axis: int, *,
-                  scheme, n: int, p: int, inv_dx) -> Sharded:
-    """The fast path's kernel launches: K11 (x) or K12 (y, z) per shard,
-    the interface update in the store."""
+def _kernel_weights(ab: Sharded, axis: int, dtype: torch.dtype) -> Sharded:
+    """The interface weights (2, *batch) in ``dtype``, laid out as K11
+    (weights last) or K12 (y: next to last; z: first) reads them."""
+    def lay(w):
+        w = w.to(dtype)
+        if axis == 0:
+            return w
+        return w.movedim(0, -1 if axis == 2 else -2).contiguous()
+
+    return ab.map(lay)
+
+
+def dist_exchange(ends: Sharded, axis: int, *, scheme: CompactScheme, n: int, p: int, dx):
+    """The fast path's exchange along mesh ``axis`` (0 = z, 1 = y, 2 = x),
+    ``n`` the global line, ``p`` > 1 its shards: halos along the native
+    axis, the faces, their all_gather and the reduced solve. ``ends`` are
+    the shards, or their first and last ``ends_width`` points along the
+    line one after the other: the two give the same bits. Returns the
+    kernels' operands ``(hl, hr, weights)``."""
+    kw = dict(scheme=scheme, n=n, p=p, inv_dx=1.0 / dx)
+    left, right = _halo_ghosts(ends, scheme=scheme, axis=axis, p=p, dim=axis - 3)
+    faces = _dist_faces(ends, left, right, axis, **kw)
+    ab = _reduced_from_faces(*faces, shard_kernel_tables(scheme, n, p), scheme=scheme,
+                             axis=axis, p=p)
+    return left, right, _kernel_weights(ab, axis, ends.dtype)
+
+
+def _dist_kernels(f: Sharded, left: Sharded, right: Sharded, weights: Sharded, axis: int, *,
+                  scheme, n: int, p: int, dx) -> Sharded:
+    """The fast path's kernel launches on the field: K11 (x) or K12 (y, z)
+    per shard, the interface update in the store."""
     blocks = shard_blocks(scheme, n, p)
 
     def solve(coord, fl, lo, hi, w):
         block = blocks[coord[axis]]
-        w = w.to(fl.dtype)
         if axis == 2:
-            return dist.lane_dist_derivative(fl, lo, hi, w.movedim(0, -1).contiguous(),
-                                             1.0 / inv_dx, block)
+            return dist.lane_dist_derivative(fl, lo, hi, w, dx, block)
         if axis == 1:
-            return dist.sublane_dist_derivative(fl, lo, hi, w.movedim(0, -2).contiguous(),
-                                                1.0 / inv_dx, block, axis=-2)
-        return dist.leading_dist_derivative(fl, lo, hi, w, inv_dx, block)
+            return dist.sublane_dist_derivative(fl, lo, hi, w, dx, block, axis=-2)
+        return dist.leading_dist_derivative(fl, lo, hi, w, 1.0 / dx, block)
 
-    return f.map(solve, left, right, ab, coords=True)
+    return f.map(solve, left, right, weights, coords=True)
 
 
 def dist_fast(f: Sharded, axis: int, *, scheme: CompactScheme, n: int, p: int, dx) -> Sharded:
-    """The fast path's derivative of a field ``(nz, ny, nx)`` per shard along
-    mesh ``axis`` (0 = z, 1 = y, 2 = x), ``n`` the global line, ``p`` > 1
-    its shards: halos along the native axis, the faces, their all_gather and
-    the reduced solve, then the kernels."""
-    kw = dict(scheme=scheme, n=n, p=p, inv_dx=1.0 / dx)
-    left, right = _halo_ghosts(f, scheme=scheme, axis=axis, p=p, dim=axis - 3)
-    faces = _dist_faces(f, left, right, axis, **kw)
-    ab = _reduced_from_faces(*faces, shard_kernel_tables(scheme, n, p), scheme=scheme,
-                             axis=axis, p=p)
-    return _dist_kernels(f, left, right, ab, axis, **kw)
+    """The fast path's derivative of a field ``(nz, ny, nx)`` per shard,
+    issued op by op: the exchange on the field, then the kernels."""
+    kw = dict(scheme=scheme, n=n, p=p, dx=dx)
+    return _dist_kernels(f, *dist_exchange(f, axis, **kw), axis, **kw)
+
+
+def dist_replayed(replays: Replays, f: Sharded, axis: int, *, scheme: CompactScheme, n: int,
+                  p: int, dx) -> Sharded:
+    """``dist_fast`` with its exchange replayed from ``replays``' graph of
+    ``f``'s layout, fed the shards' end slabs; the kernels then run on
+    ``f`` itself, outside the graph."""
+    kw = dict(scheme=scheme, n=n, p=p, dx=dx)
+    exchange = functools.partial(dist_exchange, axis=axis, **kw)
+    operands = replays(exchange, f, axis, ends_width(scheme, n, p))
+    return _dist_kernels(f, *operands, axis, **kw)
 
 
 def fast_supported(scheme: CompactScheme, axis: int, nl: int, dtype, *, auto: bool) -> bool:
@@ -453,8 +513,10 @@ class DistributedCompactSolver:
             return f.map(lambda fl: single.derivative(fl, dx, scheme, axis=axis - 3,
                                                       method=method))
         if route == "fast":
-            fast = functools.partial(dist_fast, axis=axis, scheme=scheme, n=n, p=p, dx=dx)
-            return self._replays(fast, f, axis) if replayable(f) else fast(f)
+            kw = dict(scheme=scheme, n=n, p=p, dx=dx)
+            if replayable(f):
+                return dist_replayed(self._replays, f, axis, **kw)
+            return dist_fast(f, axis, **kw)
         lines = f.map(lambda fl: fl.movedim(axis - 3, 0))
         out = _dist_lines(lines, scheme=scheme, axis=axis, p=p, n=n, inv_dx=1.0 / dx,
                           method=route)

@@ -30,6 +30,7 @@ with ``distribute``/``gather`` between a whole field and its shards.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -69,7 +70,7 @@ class Mesh:
 
     def coords(self):
         """Every mesh coordinate, in C order (the order of ``Sharded.shards``)."""
-        return list(np.ndindex(*self.shape))
+        return list(itertools.product(*map(range, self.shape)))
 
     def device(self, coord) -> torch.device:
         return self.devices[tuple(coord)]

@@ -1946,11 +1946,13 @@ def phase_dist_times(dev, smi) -> dict:
     F = torch.randn((N, N, N), generator=g, device=dev)
     Fs = grid.distribute(F)
     kw = dict(scheme=scheme, n=N, p=2, inv_dx=1 / dx)
+    kkw = dict(scheme=scheme, n=N, p=2, dx=dx)
     for axis, name in ((2, "dfdx"), (1, "dfdy"), (0, "dfdz")):
         left, right = pcompact._halo_ghosts(Fs, scheme=scheme, axis=axis, p=2, dim=axis - 3)
         faces = pcompact._dist_faces(Fs, left, right, axis, **kw)
-        rinv = pcompact.shard_kernel_tables(scheme, N, 2).rinv_rows
+        rinv = pcompact.shard_kernel_tables(scheme, N, 2)
         ab = pcompact._reduced_from_faces(*faces, rinv, scheme=scheme, axis=axis, p=2)
+        wts = pcompact._kernel_weights(ab, axis, Fs.dtype)
         times[f"dist_{name}"] = {
             "total_ms": cuda_time_ms(lambda: solver.apply(Fs, axis)),
             "halo_ms": cuda_time_ms(lambda: pcompact._halo_ghosts(
@@ -1959,13 +1961,13 @@ def phase_dist_times(dev, smi) -> dict:
             "gather_reduced_ms": cuda_time_ms(lambda: pcompact._reduced_from_faces(
                 *faces, rinv, scheme=scheme, axis=axis, p=2)),
             "kernels_ms": cuda_time_ms(lambda: pcompact._dist_kernels(
-                Fs, left, right, ab, axis, **kw)),
+                Fs, left, right, wts, axis, **kkw)),
             "kernels_device_ms": cuda_time_ms(lambda: pcompact._dist_kernels(
-                Fs, left, right, ab, axis, **kw), queued=True),
+                Fs, left, right, wts, axis, **kkw), queued=True),
             "single_device_ms": cuda_time_ms(
                 lambda: ct.derivative(F, dx, scheme, axis=axis - 3, method="kernel")),
         }
-    del Fs, left, right, faces, ab
+    del Fs, left, right, faces, ab, wts
     _dist_kernel_times(times, g, dev)
 
     model, f0, u = _model(dev, scheme, "auto", torch.float32, True)

@@ -7,7 +7,7 @@ is correct; the TF32 control in the program's place is not, on three seeds;
 nor is a timed path broken in each of three ways: the input returned, one
 shard left out, every shard solved as an independent bounded line with no
 reduced system (the fault that shows the check sees the coupling between
-shards). The cell's four per-layer metrics read what they should from a
+shards). The cell's five per-layer metrics read what they should from a
 timeline made up here, and leave out what the parent program lacks.
 """
 
@@ -173,6 +173,7 @@ def test_a_traced_run_reads_what_the_program_has(root, monkeypatch):
     metrics = {k: v["value"] for k, v in result["metrics"].items()}
     assert "k11_roofline_pct" not in metrics
     assert metrics["peer_copies_per_call"] == 0
+    assert metrics["staged_mb_per_call"] == 0
     assert metrics["exchange_ms_per_call"] == pytest.approx(2 * 100.0)
     assert metrics["dist_call_mfu_pct"] > 0
 
@@ -221,8 +222,16 @@ def test_peer_copies_per_call(root):
     assert _reading(root, "peer_copies_per_call", [], 4, None) is None
 
 
+def test_staged_mb_per_call(root, capsys):
+    # 4 calls staging 151 MB each, summed over the cards
+    assert _reading(root, "staged_mb_per_call", [], 4, 604_000_000) == pytest.approx(151.0)
+    assert capsys.readouterr().err == ""
+    assert _reading(root, "staged_mb_per_call", [], 4, None) is None
+    assert "staged_mb_per_call left out" in capsys.readouterr().err
+
+
 def test_the_new_counters_are_ones_the_program_has(root):
-    for name in ("k11_roofline_pct", "peer_copies_per_call"):
+    for name in ("k11_roofline_pct", "peer_copies_per_call", "staged_mb_per_call"):
         module = harness._module(root, "metrics", name)
         assert readers.read_counter(module.COUNTER) is not None
 
@@ -234,7 +243,7 @@ def test_the_cell_entry_is_well_formed():
     assert sum(w["chips"] == 4 for w in bench["workloads"]) <= max(1, len(bench["workloads"]) // 4)
     names = [m["name"] for m in bench["per_layer"] if "dfdx-2048-line4.x" in m.get("workloads", ())]
     assert names == ["k11_roofline_pct", "dist_call_mfu_pct", "exchange_ms_per_call",
-                     "peer_copies_per_call"]
+                     "peer_copies_per_call", "staged_mb_per_call"]
     e2e = [m["name"] for m in bench["end_to_end"] if "dfdx-2048-line4.x" in m.get("workloads", ())]
     assert e2e == ["gpts_per_s"]
     for m in bench["per_layer"]:

@@ -16,14 +16,23 @@ built from the scheme's coefficients alone) on seeded random fields:
   bits unchanged; a call makes 18 copies between cards (6 halo slabs, 12
   face gathers) and none on one card, launches K11 once a shard, and after
   the first makes no copy from the host;
-* across cards the solver replays the call from one CUDA graph
-  (``parallel/graphs.py``), which equals the call issued op by op bitwise
-  (the same kernels on the same operands): on a new field each call as on
-  a field seen before, with one graph for them all; each replay counts the
-  captured call's 18 copies and 4 launches, and an output held across
-  later replays keeps its values. On the CPU, and with every shard on one
-  card, the call is issued op by op; ``Replays`` itself is also held
-  against the plain call on one card (``gpu``, one card).
+* across cards the solver replays the exchange (halos, faces, gather,
+  reduced solve, up to the interface weights) from one CUDA graph fed the
+  shards' end slabs (``parallel/graphs.py``), then launches K11/K12 on the
+  field; that equals the call issued op by op bitwise (the same kernels on
+  the same operands): on a new field each call as on a field seen before,
+  with one graph for them all, along x, y and z; each replay counts the
+  captured exchange's 18 copies and the end slabs it staged, K11 its own 4
+  launches, and outputs held across later replays are distinct tensors that
+  keep their values. On the CPU, and with every shard on one card, the call
+  is issued op by op; ``Replays`` itself is also held against the plain
+  call on one card (``gpu``, one card).
+* on the CPU, the exchange on the end slabs (``graphs.stage_ends``, the
+  first and last ``compact.ends_width`` points) equals the exchange on the
+  whole field bitwise along x, y and z, for ``pade4`` and ``lele6``,
+  periodic and bounded, staged and whole; ``ends_width`` is the largest of
+  the faces', ghosts' and halos' reads, and slabs one point short change
+  the weights.
 """
 
 from __future__ import annotations
@@ -34,9 +43,10 @@ import torch
 from cfd_tpu_torch.ops import dist
 from cfd_tpu_torch.parallel import DistributedCompactSolver, Grid, make_mesh
 from cfd_tpu_torch.parallel import dist_tables
-from cfd_tpu_torch.parallel.compact import dist_fast
-from cfd_tpu_torch.parallel.graphs import Replays, replayable
-from cfd_tpu_torch.schemes import SCHEME4
+from cfd_tpu_torch.parallel.compact import (_dist_faces, dist_exchange, dist_fast, dist_replayed,
+                                             end_reads, ends_width)
+from cfd_tpu_torch.parallel.graphs import Replays, replayable, stage_ends
+from cfd_tpu_torch.schemes import SCHEME4, SCHEME4_PERIODIC, SCHEME6, SCHEME6_PERIODIC
 from portbench.reference.ops import FLOAT64, bounded_d1, bounded_d1_apply
 
 LOCALS = [(4, 6, 128), (3, 5, 64)]
@@ -120,6 +130,55 @@ def test_graphed_is_the_plain_call_on_the_cpu():
     assert all(torch.equal(a, b) for a, b in zip(got.shards, want.shards))
 
 
+EXCHANGES = [(scheme, axis, nl) for scheme in (SCHEME4, SCHEME4_PERIODIC, SCHEME6, SCHEME6_PERIODIC)
+             for axis in (2, 1, 0) for nl in (128, 24)]
+
+
+def _along(axis, nl, devices, scheme=SCHEME4):
+    """A grid of four shards along ``axis``, ``nl`` points a shard line."""
+    mesh, local = [1, 1, 1], [3, 5, 6]
+    mesh[axis], local[axis] = 4, nl
+    shape = tuple(m * k for m, k in zip(mesh, local))
+    h = 0.7 / (shape[axis] - 1)
+    return Grid(make_mesh(mesh, devices), shape, (h, h, h), scheme)
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for pa, pb in zip(a, b) for x, y in zip(pa.shards, pb.shards))
+
+
+@pytest.mark.parametrize("scheme,axis,nl", EXCHANGES,
+                         ids=[f"{s.name}-{'zyx'[a]}-{nl}" for s, a, nl in EXCHANGES])
+def test_the_exchange_on_the_end_slabs_is_the_exchange_on_the_field(scheme, axis, nl):
+    grid = _along(axis, nl, ["cpu"] * 4, scheme)
+    f = grid.distribute(_field(grid.shape, torch.float32, 31))
+    n = grid.shape[axis]
+    kw = dict(scheme=scheme, n=n, p=4, dx=grid.spacing[axis])
+    reads = end_reads(scheme, n, 4)
+    width = ends_width(scheme, n, 4)
+    staged = nl == 128
+    assert 2 * max(reads.values()) < nl if staged else 2 * max(reads.values()) >= nl
+    assert width == (max(reads.values()) if staged else nl)
+
+    def exchange(ends):
+        # the operands, and the float64 faces: a slab one point short moves
+        # a face by its functional's outermost weight (~1e-9 of it), which
+        # the float32 weights may round away
+        hl, hr, weights = dist_exchange(ends, axis, **kw)
+        faces = _dist_faces(ends, hl, hr, axis, scheme=scheme, n=n, p=4, inv_dx=1.0 / kw["dx"])
+        return (hl, hr, weights) + faces
+
+    def on_ends(width):
+        ends = f.map(lambda s: stage_ends(s, axis - 3, width))
+        assert ends.local_shape[axis] == (2 * width if staged else nl)
+        return exchange(ends)
+
+    want = exchange(f)
+    assert _equal(on_ends(width), want)
+    if staged:
+        assert not _equal(on_ends(width - 1), want)
+
+
 def _four_cards():
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA cards")
@@ -197,8 +256,9 @@ def test_graph_replays_equal_the_plain_call_across_cards():
 
 @pytest.mark.gpu
 def test_a_replay_on_one_card_equals_the_plain_call():
-    # the graph's copies in and out and its replay, on a mesh on cuda:0 alone
-    # (where the solver itself issues the call op by op)
+    # the staging of the end slabs, the exchange's replay and the kernels
+    # after it, on a mesh on cuda:0 alone (where the solver itself issues
+    # the call op by op)
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     solver = _solver((32, 64, 512), ["cuda:0"] * 4)
@@ -206,13 +266,65 @@ def test_a_replay_on_one_card_equals_the_plain_call():
               for s in (23, 24, 25)]
     assert not replayable(fields[0])
     replays = Replays()
-    held = replays(lambda f: _plain(solver, f), fields[0], 2)
+    grid = solver.grid
+    kw = dict(scheme=grid.scheme, n=grid.shape[2], p=4, dx=grid.spacing[2])
+    held = dist_replayed(replays, fields[0], 2, **kw)
     kept = [s.clone() for s in held.shards]
     for f in fields + [solver.grid.distribute(_field(solver.grid.shape, torch.float32, 26))]:
         launches = dist.LAUNCHES["lane_dist"]
-        got = replays(lambda f: _plain(solver, f), f, 2)
+        got = dist_replayed(replays, f, 2, **kw)
         assert dist.LAUNCHES["lane_dist"] - launches == 4
         want = _plain(solver, f)
         assert all(torch.equal(a, b) for a, b in zip(got.shards, want.shards))
     assert len(replays) == 1
     assert all(torch.equal(a, b) for a, b in zip(held.shards, kept))
+
+
+def _counts():
+    return (dict(dist.STAGED), dist.LAUNCHES["lane_dist"] + dist.LAUNCHES["strided_dist"],
+            dist.PEER_COPIES["copies"])
+
+
+@pytest.mark.gpu
+def test_a_replay_stages_the_end_slabs_and_its_outputs_stay():
+    cards = _four_cards()
+    solver = _solver((32, 64, 512), cards)
+    grid = solver.grid
+    fields = [grid.distribute(_field(grid.shape, torch.float32, s)) for s in (27, 28, 29)]
+    solver.dfdx(fields[0])  # the capture, then its first replay
+    width = ends_width(SCHEME4, grid.shape[2], 4)
+    assert width == 18
+    outs = []
+    for f in fields:
+        staged, launches, copies = _counts()
+        outs.append(solver.dfdx(f))
+        after = _counts()
+        assert after[0]["replays"] - staged["replays"] == 1
+        assert after[0]["bytes"] - staged["bytes"] == 4 * 2 * width * 32 * 64 * 4
+        assert (after[1] - launches, after[2] - copies) == (4, 18)
+    assert len({s.data_ptr() for out in outs for s in out.shards}) == 12
+    for f, out in zip(fields, outs):
+        assert all(torch.equal(a, b) for a, b in zip(out.shards, _plain(solver, f).shards))
+    assert len(solver._replays) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis,nl", [(1, 128), (0, 64)])
+def test_y_and_z_replays_equal_the_plain_call(axis, nl):
+    cards = _four_cards()
+    grid = _along(axis, nl, cards)
+    solver = DistributedCompactSolver(grid)
+    kw = dict(scheme=grid.scheme, n=grid.shape[axis], p=4, dx=grid.spacing[axis])
+    fields = [grid.distribute(_field(grid.shape, torch.float32, s)) for s in (32, 33)]
+    assert solver.route(fields[0], axis) == "fast" and replayable(fields[0])
+    solver.apply(fields[0], axis)  # the capture
+    width = ends_width(grid.scheme, grid.shape[axis], 4)
+    for f in fields + [fields[0], grid.distribute(_field(grid.shape, torch.float32, 34))]:
+        staged, launches, _ = _counts()
+        got = solver.apply(f, axis)
+        after = _counts()
+        assert after[0]["bytes"] - staged["bytes"] == 4 * 2 * width * f.shards[0].numel() // nl * 4
+        assert after[1] - launches == 4
+        want = dist_fast(f, axis, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got.shards, want.shards))
+    assert len(solver._replays) == 1
