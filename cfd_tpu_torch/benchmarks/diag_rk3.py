@@ -75,7 +75,7 @@ def main(argv=None) -> list:
         mid = dict(a=-5.0 / 9.0, b=15.0 / 16.0, dt=DT, nu=1e-3)
         time_case("advection_pair (K13)", lambda f: pair.advection_pair(f, ux, uy, dx, dx, s1), f0)
         time_case("lap_rhs (K9)", lambda f: adv_lap.lap_rhs(f, dx, dx, dx, s2), f0)
-        if adv_lap.adv_lap_fits(f0.shape):
+        if adv_lap.adv_lap_fits(f0.shape, f0.device):
             time_case("adv_lap_rhs merged (K3)",
                       lambda f: adv_lap.adv_lap_rhs(f, ux, uy, dx, dx, dx, s1, s2)[1], f0)
         time_case("rk3_mega (K4)",

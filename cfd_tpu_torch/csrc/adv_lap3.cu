@@ -55,15 +55,14 @@
 
 #include "xy_phase.cuh"
 
-// u0, u1, u2, axy0..2, r0..2: (nz, ny, nx); no output aliases an input.
-// c1y with tab1y, hy1, winy1 and c2y with tab2y, hy2, winy2: the d1 and the
-// periodic d2 scheme along y (n = ny, scaled by 1/dy and 1/dy^2), with
-// their chain tables (ops/lane.py `chain_table`) for nby sub-blocks a
-// y-line, or their per-point tables where nby = 0 (the column walk). c1x
+// u0, u1, u2, axy0..2, r0..2: (nz, ny, nx); no output aliases an input. c1y
+// with tab1y, hy1, winy1 and c2y with tab2y, hy2, winy2: the d1 and the
+// periodic d2 scheme along y (n = ny, scaled by 1/dy and 1/dy^2), with their
+// chain tables (ops/lane.py `chain_table`) for nby sub-blocks a y-line. c1x
 // with chx1, h1, win1 and c2x with chx2, h2, win2: the two along x (n = nx,
 // scaled by 1/dx and 1/dx^2), with their chain tables for nb sub-blocks a
-// line. bt, tt: the d2 scheme's z tables (nz, 2W + 1), scaled by 1/dz^2,
-// and (nz, 3).
+// line. bt, tt: the d2 scheme's z tables (nz, 2W + 1), scaled by 1/dz^2, and
+// (nz, 3).
 extern "C" int cfd_adv_lap3(const float* u0, const float* u1, const float* u2, float* axy0,
                             float* axy1, float* axy2, float* r0, float* r1, float* r2,
                             const float* tab1y, const float* tab2y, const float* chx1,

@@ -36,11 +36,10 @@
 
 #include "xy_phase.cuh"
 
-// f, ux, uy, out: (planes, ny, nx); out aliases no input. cy with taby,
-// nby, hy, winy: the d1 scheme along y (n = ny, scaled by 1/dy), its chain
-// table (ops/lane.py `chain_table`) for nby sub-blocks a y-line, or its
-// per-point table where nby = 0 (the column walk); cx with chx, nb, h, win:
-// along x (n = nx, scaled by 1/dx), its chain table for nb sub-blocks a
+// f, ux, uy, out: (planes, ny, nx); out aliases no input. cy with taby, nby,
+// hy, winy: the d1 scheme along y (n = ny, scaled by 1/dy), its chain table
+// (ops/lane.py `chain_table`) for nby sub-blocks a y-line; cx with chx, nb, h,
+// win: along x (n = nx, scaled by 1/dx), its chain table for nb sub-blocks a
 // line.
 extern "C" int cfd_adv_pair(const float* f, const float* ux, const float* uy, float* out,
                             const float* taby, const float* chx, const Coef* cy, const Coef* cx,

@@ -34,11 +34,10 @@
 
 #include "xy_phase.cuh"
 
-// ux, uy, uz, r: (nz, ny, nx); r aliases no input. c1y with tab1y, nby,
-// hy, winy: the d1 scheme along y (scaled by 1/dy), its chain table
-// (ops/lane.py `chain_table`) for nby sub-blocks a y-line, or its per-point
-// table where nby = 0 (the column walk); c1x with chx, nb, h, win: along x
-// (scaled by 1/dx), its chain table for nb sub-blocks a line; bt, tt: its z
+// ux, uy, uz, r: (nz, ny, nx); r aliases no input. c1y with tab1y, nby, hy,
+// winy: the d1 scheme along y (scaled by 1/dy), its chain table (ops/lane.py
+// `chain_table`) for nby sub-blocks a y-line; c1x with chx, nb, h, win: along
+// x (scaled by 1/dx), its chain table for nb sub-blocks a line; bt, tt: its z
 // tables (nz, 2W + 1), scaled by 1/dz, and (nz, 3).
 extern "C" int cfd_div_rhs(const float* ux, const float* uy, const float* uz, float* r,
                            const float* tab1y, const float* chx, const float* bt, const float* tt,

@@ -33,11 +33,10 @@
 
 #include "xy_phase.cuh"
 
-// f, r: (nz, ny, nx); r does not alias f. c2y with tab2y, nby, hy, winy:
-// the periodic d2 scheme along y (scaled by 1/dy^2), its chain table
-// (ops/lane.py `chain_table`) for nby sub-blocks a y-line, or its per-point
-// table where nby = 0 (the column walk); c2x with chx, nb, h, win: along x
-// (scaled by 1/dx^2), its chain table for nb sub-blocks a line; bt, tt: its
+// f, r: (nz, ny, nx); r does not alias f. c2y with tab2y, nby, hy, winy: the
+// periodic d2 scheme along y (scaled by 1/dy^2), its chain table (ops/lane.py
+// `chain_table`) for nby sub-blocks a y-line; c2x with chx, nb, h, win: along
+// x (scaled by 1/dx^2), its chain table for nb sub-blocks a line; bt, tt: its
 // z tables (nz, 2W + 1), scaled by 1/dz^2, and (nz, 3).
 extern "C" int cfd_lap_rhs(const float* f, float* r, const float* tab2y, const float* chx,
                            const float* bt, const float* tt, const Coef* c2y, const Coef* c2x,

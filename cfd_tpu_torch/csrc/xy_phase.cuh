@@ -38,7 +38,9 @@
 // 1. y phase, in one of two forms:
 //    - staged y-tile sub-block chains (every launch of the first two kinds
 //      and the advection-only kind: `xy_y_kernel<K, KIND>`, with the chain
-//      tables of ops/lane.py `chain_table` along y in XYArgs, `nby` > 0):
+//      tables of ops/lane.py `chain_table` along y in XYArgs, `nby` > 0;
+//      ops/lane.py `y_phase_fits` keeps the routes off y-lines whose
+//      column does not fit):
 //      as K4 runs z (rk3_mega.cu), a block takes C consecutive x-columns of
 //      one plane and stages their whole y-lines once in shared memory,
 //      tile[m * C + l] row m of column l: sy (K13, with cp.async), T_z sy
@@ -61,11 +63,8 @@
 //      and 1024 chains a block), 1 for a pair on prime y-lines of 29,033
 //      points (one chain a line, 227 KB).
 //    - one thread a (z, x) column of one family (the weighted kind,
-//      `xyw_y_kernel`; and `xy_y_walk_kernel`, which the wrappers ask for
-//      with nby = 0 where even one column's tiles pass the opt-in maximum,
-//      counted in ops/lane.py `Y_WALKS`), walking y as K2 does: the forward
-//      sweep keeps its values in `out`, and the backward sweep stores the
-//      result there.
+//      `xyw_y_kernel`), walking y as K2 does: the forward sweep keeps its
+//      values in `out`, and the backward sweep stores the result there.
 // 2. x phase, in one of two forms:
 //    - one thread a line (K8 and K10, weighted: `xy_launch`): a block
 //      stages consecutive x-lines of a family's Z sx in shared memory with
@@ -93,8 +92,8 @@
 // family, its source once and its output once, and my (advection) once;
 // the neighbouring planes that form T_z sy and B_z bz are mostly L2 hits,
 // since the blocks in flight hold a few consecutive planes. So K5's y
-// phase moves 12 passes, not the column walk's ~27 (each pass's scratch
-// round trip in `out`). The x phase adds a read-modify-write of every
+// phase moves 12 passes, not the ~27 of a walk of one thread a column
+// (each pass's scratch round trip in `out`). The x phase adds a read-modify-write of every
 // output. Both phases run latency-bound sub-block recurrences like K1's and
 // K4's (PERF.md).
 //
@@ -117,7 +116,7 @@ namespace {
 
 #define XY_MAX_FAMILIES 6
 #define XY_Z_TAPS (2 * CFD_MAX_K + 1)
-#define XY_Y_THREADS 128         // column-walk y phase: columns per block
+#define XY_Y_THREADS 128         // weighted y phase: columns per block
 #define XY_Y_COLS 32             // staged y phase: columns a block takes where they fit
 #define XY_Y_MAX_THREADS 512     // staged y phase: the most threads a block runs
 #define XY_Y_STAGERS 128         // staged y phase: the fewest threads a block stages with
@@ -152,7 +151,7 @@ struct XYArgs {
   // each scheme's table along y: its chain table (ops/lane.py
   // `chain_table`) for nby sub-blocks a y-line, with its reduced rows'
   // window (hy, winy), for the staged y phase (xy_y_chains); its per-point
-  // table where nby = 0 (the weighted kind and the column walk)
+  // table for the weighted kind (nby = 0)
   const float* taby[2];
   int hy[2], winy[2];
   int nby;
@@ -266,58 +265,6 @@ struct BzRow {
     return s[0];
   }
 };
-
-// One family's column of the y phase.
-template <bool RHS>
-__device__ __forceinline__ void xy_y_column(const XYArgs& a, const XYFamily& F, long long col) {
-  const Coef& c = a.cy[F.d2];
-  const int ny = c.n;
-  const long long nx = a.cx[0].n;
-  const long long plane = ny * nx;
-  const long long p = col / nx;
-  const long long base = p * plane + (col - p * nx);
-  if constexpr (RHS) {
-    const TzRow tz(a.zt, p, plane);
-    auto src = [&](int m) {
-      if (m >= ny) {
-        if (!c.periodic) return 0.f;
-        m %= ny;
-      }
-      return tz.at(F.sy, base + m * nx);
-    };
-    const BzRow bz(a.zt, p, plane);
-    solve_line(c, a.taby[F.d2], src, F.out + base, nx, [&](int i, float v) {
-      const long long e = base + i * nx;
-      F.out[e] = v + bz.at(F.bz, e);
-    });
-  } else {  // an advection family reads no z table (K13 passes none)
-    auto src = [&](int m) {
-      if (m >= ny) {
-        if (!c.periodic) return 0.f;
-        m %= ny;
-      }
-      return __ldg(F.sy + base + m * nx);
-    };
-    solve_line(c, a.taby[F.d2], src, F.out + base, nx, [&](int i, float v) {
-      const long long e = base + i * nx;
-      F.out[e] = __ldg(F.my + e) * v;
-    });
-  }
-}
-
-// The column walk: one thread a column of one family. At most 64
-// registers, so 8 blocks (1,024 threads) fit an SM.
-__global__ void __launch_bounds__(XY_Y_THREADS, 8)
-    xy_y_walk_kernel(const __grid_constant__ XYArgs a) {
-  const XYFamily& F = a.fam[blockIdx.y];
-  const long long col = (long long)blockIdx.x * XY_Y_THREADS + threadIdx.x;
-  if (col >= a.zt.nz * a.cx[0].n) return;
-  if (F.rhs) {
-    xy_y_column<true>(a, F, col);
-  } else {
-    xy_y_column<false>(a, F, col);
-  }
-}
 
 // The kinds of the chained launches (xy_chain_launch<KIND>): unpaired
 // z-RHS families (XY_RHS: K6, K9), advection families (XY_ADV: K13), or
@@ -741,16 +688,10 @@ __host__ inline void xy_chain_x(const XYArgs& a, unsigned blocks, int per_block,
 // `s`: staged, C columns a block (XY_Y_COLS, halved while half of them
 // still covers the plane's nx, then while the block passes
 // XY_Y_MAX_THREADS or its shared memory the device's opt-in maximum), K
-// the chains' stencil width; with a.nby = 0 the column walk. A column
-// whose tiles pass the opt-in maximum returns cudaErrorInvalidValue.
+// the chains' stencil width. A column whose tiles pass the opt-in maximum
+// returns cudaErrorInvalidValue.
 template <int KIND>
 __host__ inline cudaError_t xy_y_launch(const XYArgs& a, int K, cudaStream_t s) {
-  if (a.nby == 0) {
-    const long long cols = (long long)a.zt.nz * a.cx[0].n;
-    const dim3 ygrid((unsigned)((cols + XY_Y_THREADS - 1) / XY_Y_THREADS), a.nfam);
-    xy_y_walk_kernel<<<ygrid, XY_Y_THREADS, 0, s>>>(a);
-    return cudaGetLastError();
-  }
   constexpr int tiles = xy_chain_tiles<KIND>();
   const int ny = a.cy[0].n, nx = a.cx[0].n, nb = a.nby;
   // per device: the dynamic shared memory these kernels have been opted in
@@ -810,8 +751,7 @@ __host__ inline void xy_chain_table(XYArgs& a, int s, const float* chx, int nb, 
 }
 
 // Scheme s's reduced rows' window (h, win) along y, for the nb sub-blocks
-// of a y-line whose chain table a.taby[s] is, into `a`; nb = 0 where
-// a.taby[s] is the scheme's per-point table and the y phase walks columns.
+// of a y-line whose chain table a.taby[s] is, into `a`.
 __host__ inline void xy_y_chains(XYArgs& a, int s, int nb, int h, int win) {
   a.nby = nb;
   a.hy[s] = h;
@@ -839,8 +779,7 @@ __host__ inline bool xy_chain_kind(const XYArgs& a) {
 // table along x of each scheme s the families use, for `a.nb` sub-blocks a
 // line (a divisor of nx; at most XY_CHAIN_THREADS chains a line in all);
 // `a.taby[s]`, `a.hy[s]` and `a.winy[s]` (xy_y_chains) its chain table
-// along y for `a.nby` sub-blocks a y-line (a divisor of ny), or its
-// per-point table with a.nby = 0 (xy_y_launch). An x block runs
+// along y for `a.nby` sub-blocks a y-line (a divisor of ny). An x block runs
 // XY_CHAIN_THREADS / (nb tiles) lines, fewer until they fit 48 KB, at least
 // one, in the device's opt-in maximum where one line passes 48 KB, with at
 // least XY_CHAIN_STAGERS threads. Anything else, and an x-line or a y
@@ -852,12 +791,12 @@ __host__ inline int xy_chain_launch(const XYArgs& a, void* stream) {
   const int nx = a.cx[0].n, nb = a.nb;
   const int ny = a.cy[0].n, nby = a.nby;
   bool ok = xy_valid(a) && xy_chain_kind<KIND>(a) && nb >= 1 &&
-            tiles * nb <= XY_CHAIN_THREADS && nx % nb == 0 && nby >= 0 &&
-            tiles * nby <= XY_Y_MAX_THREADS && (nby == 0 || ny % nby == 0);
+            tiles * nb <= XY_CHAIN_THREADS && nx % nb == 0 && nby >= 1 &&
+            tiles * nby <= XY_Y_MAX_THREADS && ny % nby == 0;
   int K = 0;
   for (int s = 0; ok && s < tiles; ++s) {
     ok = a.chx[s] && a.win[s] >= 1 && a.win[s] <= 2 * nb && a.taby[s] &&
-         (nby == 0 || (a.winy[s] >= 1 && a.winy[s] <= 2 * nby));
+         a.winy[s] >= 1 && a.winy[s] <= 2 * nby;
     const int k = a.cx[s].K > a.cy[s].K ? a.cx[s].K : a.cy[s].K;
     ok = ok && a.cx[s].K >= 1 && a.cy[s].K >= 1 && k <= CFD_MAX_K;
     K = k > K ? k : K;

@@ -22,6 +22,7 @@ import hashlib
 import os
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,6 +40,7 @@ __all__ = [
     "fill_coef",
     "kernel_tables",
     "launch_tables",
+    "smem_limit",
     "x_lines_fit",
     "xy_planes_fit",
 ]
@@ -215,6 +217,27 @@ def xy_planes_fit(scheme: CompactScheme, ny: int, nx: int) -> bool:
     package's routing has it. The chained x phase of K6, K9 and K13 also
     takes longer lines."""
     return min(ny, nx) >= scheme.min_points() and x_lines_fit(nx)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_smem_limit(index: int) -> int:
+    bytes_ = ctypes.c_int()
+    with torch.cuda.device(index):
+        err = library().cfd_rk3_mega_smem_limit(ctypes.byref(bytes_))
+    check(err, "rk3_mega")
+    return bytes_.value
+
+
+def smem_limit(device) -> Optional[int]:
+    """The shared memory a block that opts in may take on ``device``, as the
+    kernels themselves ask it (``cfd_rk3_mega_smem_limit``: the device's
+    opt-in maximum); None off the card, where the plain versions stage
+    nothing."""
+    device = torch.device(device) if device is not None else None
+    if device is None or device.type != "cuda":
+        return None
+    return _device_smem_limit(device.index if device.index is not None
+                              else torch.cuda.current_device())
 
 
 def check_operands(kernel: str, *tensors: torch.Tensor) -> None:

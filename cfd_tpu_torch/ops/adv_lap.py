@@ -37,8 +37,9 @@ by them. K9's x phase runs the same chains on T_z f. The chains are those
 ``lane.line_nb`` cuts, on the chain tables ``lane`` caches for K1. The y
 phase of all three runs them too, down the y-lines of a block's columns
 staged in shared memory (K3 and K5: f and T_z f from one read), on the
-tables ``lane.y_tables`` gives, and walks one thread a column only where a
-column's tiles pass the card's shared memory (``lane.Y_WALKS``).
+tables ``lane.y_tables`` gives; the predicates decline y-lines whose
+column's tiles pass the card's opt-in maximum (``lane.y_phase_fits``), as
+``megastep.rk3_mega_supported`` declines such z-lines.
 
 ``LAUNCHES``, ``LAUNCHES3`` and ``LAP_LAUNCHES`` count calls that launched
 K3, K5 and K9 (each kernel's two phases count once); nothing but the launch
@@ -117,20 +118,22 @@ def device_z_tables(scheme: CompactScheme, n: int, dz: float, device: torch.devi
     return bt, tt
 
 
-def adv_lap_fits(shape) -> bool:
-    """Whether the fused substep takes K3 for (nz, ny, nx) fields: two
-    staged lines (the advection and the Laplacian family's) within an x
-    block's 48 KB, nx <= 6134, as the JAX package routes K3 by the VMEM
-    they need. K3's chained x phase also takes longer lines."""
-    return _native.x_lines_fit(shape[-1], tiles=2)
+def adv_lap_fits(shape, device=None) -> bool:
+    """Whether the fused substep takes K3 for (nz, ny, nx) fields on
+    ``device``: two staged lines (the advection and the Laplacian family's)
+    within an x block's 48 KB, nx <= 6134, as the JAX package routes K3 by
+    the VMEM they need, and a column's two y tiles within the card's opt-in
+    maximum (``lane.y_phase_fits``). K3's chained x phase also takes longer
+    lines."""
+    return _native.x_lines_fit(shape[-1], tiles=2) and lane.y_phase_fits(shape[-2], 2, device)
 
 
-def adv_lap3_fits(shape) -> bool:
-    """Whether the fused substep takes K5 for (nz, ny, nx) fields: the
-    x-lines the substep takes K3 for (``adv_lap_fits``), as the JAX package
-    routes K5 by the VMEM its two staged lines a component need. K5's
-    chained x phase also takes longer lines."""
-    return _native.x_lines_fit(shape[-1], tiles=2)
+def adv_lap3_fits(shape, device=None) -> bool:
+    """Whether the fused substep takes K5 for (nz, ny, nx) fields on
+    ``device``: the shapes the substep takes K3 for (``adv_lap_fits``), as
+    the JAX package routes K5 by the VMEM its two staged lines a component
+    need. K5's chained x phase also takes longer lines."""
+    return _native.x_lines_fit(shape[-1], tiles=2) and lane.y_phase_fits(shape[-2], 2, device)
 
 
 def _check(f, ux, uy, scheme1: CompactScheme, scheme2: CompactScheme) -> None:
@@ -157,11 +160,10 @@ def adv_lap_rhs_ref(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: Comp
 
 
 def _pair_tables(shape, dz, dy, dx, scheme1, scheme2, dev):
-    """The table arguments of K3 and K5 (``cfd_adv_lap``, ``cfd_adv_lap3``)
-    and the y phase's sub-blocks (0: the column walk): the two schemes'
-    tables along y (``lane.y_tables``), their chain tables along x for
-    ``lane.line_nb(nx)`` sub-blocks, the z tables, the four Coefs, nz, W,
-    each axis's sub-blocks and each chain table's reduced window."""
+    """The table arguments of K3 and K5 (``cfd_adv_lap``, ``cfd_adv_lap3``):
+    the two schemes' chain tables along y (``lane.y_tables``) and along x
+    for ``lane.line_nb(nx)`` sub-blocks, the z tables, the four Coefs, nz,
+    W, each axis's sub-blocks and each chain table's reduced window."""
     nz, ny, nx = shape
     bt, tt = device_z_tables(scheme2, nz, float(dz), dev)
     nby, ((c1y, t1y, hy1, winy1), (c2y, t2y, hy2, winy2)) = lane.y_tables(
@@ -169,7 +171,7 @@ def _pair_tables(shape, dz, dy, dx, scheme1, scheme2, dev):
     nb = lane.line_nb(nx)
     c1x, ch1, h1, win1 = lane._chain_launch_tables(scheme1, nx, nb, float(dx), dev)
     c2x, ch2, h2, win2 = lane._chain_launch_tables(scheme2, nx, nb, float(dx), dev)
-    return nby, (
+    return (
         t1y.data_ptr(), t2y.data_ptr(), ch1.data_ptr(), ch2.data_ptr(),
         bt.data_ptr(), tt.data_ptr(),
         ctypes.byref(c1y), ctypes.byref(c2y), ctypes.byref(c1x), ctypes.byref(c2x),
@@ -196,7 +198,7 @@ def adv_lap_rhs(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactS
     _native.check_operands("adv_lap", f, ux, uy)
     axy = torch.empty_like(f)
     r = torch.empty_like(f)
-    nby, tables = _pair_tables(f.shape, dz, dy, dx, scheme1, scheme2, f.device)
+    tables = _pair_tables(f.shape, dz, dy, dx, scheme1, scheme2, f.device)
     with torch.cuda.device(f.device):
         err = _native.library().cfd_adv_lap(
             f.data_ptr(), ux.data_ptr(), uy.data_ptr(), axy.data_ptr(), r.data_ptr(),
@@ -204,7 +206,6 @@ def adv_lap_rhs(f, ux, uy, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactS
         )
     _native.check(err, "adv_lap")
     LAUNCHES += 1
-    lane.Y_WALKS += int(nby == 0)
     return axy, r
 
 
@@ -235,7 +236,7 @@ def adv_lap_rhs3(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
     _native.check_operands("adv_lap3", u0, u1, u2)
     axy = [torch.empty_like(u0) for _ in range(3)]
     r = [torch.empty_like(u0) for _ in range(3)]
-    nby, tables = _pair_tables(u0.shape, dz, dy, dx, scheme1, scheme2, u0.device)
+    tables = _pair_tables(u0.shape, dz, dy, dx, scheme1, scheme2, u0.device)
     with torch.cuda.device(u0.device):
         err = _native.library().cfd_adv_lap3(
             u0.data_ptr(), u1.data_ptr(), u2.data_ptr(),
@@ -244,18 +245,20 @@ def adv_lap_rhs3(u, dz, dy, dx, scheme1: CompactScheme, scheme2: CompactScheme):
         )
     _native.check(err, "adv_lap3")
     LAUNCHES3 += 1
-    lane.Y_WALKS += int(nby == 0)
     return tuple(axy), tuple(r)
 
 
-def lap_rhs_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) -> bool:
-    """Whether K9 takes (nz, ny, nx) fields of ``dtype`` for ``scheme``."""
+def lap_rhs_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype,
+                      device=None) -> bool:
+    """Whether K9 takes (nz, ny, nx) fields of ``dtype`` for ``scheme`` on
+    ``device``."""
     return (
         scheme.derivative_order == 2
         and scheme.periodic
         and dtype == torch.float32
         and nz >= max(scheme.min_points(), 2 * scheme.stencil_width + 1)
         and _native.xy_planes_fit(scheme, ny, nx)
+        and lane.y_phase_fits(ny, 1, device)
     )
 
 
@@ -302,5 +305,4 @@ def lap_rhs(f, dz, dy, dx, scheme: CompactScheme):
         )
     _native.check(err, "lap_rhs")
     LAP_LAUNCHES += 1
-    lane.Y_WALKS += int(nby == 0)
     return r

@@ -215,7 +215,7 @@ def divergence(
         and ux.ndim == 3
         and ux.shape == uy.shape == uz.shape
         and ux.dtype == uy.dtype == uz.dtype
-        and vec.div_fused_supported(scheme, *ux.shape, ux.dtype)
+        and vec.div_fused_supported(scheme, *ux.shape, ux.dtype, ux.device)
     ):
         return vec.divergence_fused((ux, uy, uz), dz, dy, dx, scheme)
     return (
@@ -295,7 +295,7 @@ def laplacian(
         and f.ndim >= 3
         and pair.d2_sum_supported(scheme, f.shape[-2], f.shape[-1], f.dtype)
     ):
-        if f.ndim == 3 and adv_lap.lap_rhs_supported(scheme, *f.shape, f.dtype):
+        if f.ndim == 3 and adv_lap.lap_rhs_supported(scheme, *f.shape, f.dtype, f.device):
             return strided.leading_solve(adv_lap.lap_rhs(f, dz, dy, dx, scheme), scheme)
         s = pair.d2_pair_sum(f, dy, dx, scheme)
         if f.ndim == 3:

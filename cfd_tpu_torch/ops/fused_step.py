@@ -19,7 +19,11 @@ device, in the JAX package's order:
   x-lines (``adv_lap.adv_lap_fits``: two staged lines, nx <= 6134); else
   ``stepwise_head`` (K13 ``advection_pair`` + K9 ``lap_rhs``) where both
   are routed there (one x-line within 48 KB, nx <= 12278); else the
-  substep returns None and the model runs its generic form;
+  substep returns None and the model runs its generic form. The y phase of
+  K3, K13 and K9 stages a block's y-lines in shared memory, so each head
+  declines y-lines whose tiles of one column pass the card's opt-in
+  maximum (``lane.y_phase_fits``: a pair's two tiles past about 29,000
+  points, one tile past about 58,000), as K4 declines such z-lines;
 * tail: ``mega_tail`` (K4, ``rk3_mega``) where ``rk3_mega_supported``;
   else ``stepwise_tail``: K2 with ``mul`` and ``acc`` (``uz * fz + axy``),
   then K2's ``rk`` mode (``rk3_solve_update``). K4 stages a block's
@@ -30,8 +34,9 @@ device, in the JAX package's order:
 The routes decide on the host, before any launch; a kernel that then fails
 raises, and no route catches it. A CPU tensor takes the route that a
 float32 field of its shape takes on the card, through the plain versions,
-whatever its dtype, but for K4's shared-memory condition, which is the
-card's own (``megastep.smem_limit``) and holds only there. On the card a dtype other than float32 has no fused
+whatever its dtype, but for the shared-memory conditions of the y phase
+and K4, which are the card's own (``_native.smem_limit``) and hold only
+there. On the card a dtype other than float32 has no fused
 route: the substeps return None. The change of variables behind ``r`` is
 periodic-only (``pallas_lap.py``), so for a non-periodic d2 scheme the
 builders return None and the model always runs its generic form.
@@ -103,10 +108,10 @@ def head_route(f, scheme: CompactScheme, d2: CompactScheme) -> Optional[Callable
     if f.ndim != 3 or dtype != torch.float32:
         return None
     nz, ny, nx = f.shape
-    if adv_lap.adv_lap_fits(f.shape):
+    if adv_lap.adv_lap_fits(f.shape, f.device):
         return merged_head
-    if (pair.adv_pair_supported(scheme, ny, nx, dtype)
-            and adv_lap.lap_rhs_supported(d2, nz, ny, nx, dtype)):
+    if (pair.adv_pair_supported(scheme, ny, nx, dtype, f.device)
+            and adv_lap.lap_rhs_supported(d2, nz, ny, nx, dtype, f.device)):
         return stepwise_head
     return None
 
@@ -182,7 +187,8 @@ def make_fused_substep_vec(
     def substep_vec(u, q, dt, nu, a, b, last=False):
         u0 = u[0]
         dtype = _route_dtype(u0)
-        if (u0.ndim != 3 or dtype != torch.float32 or not adv_lap.adv_lap3_fits(u0.shape)
+        if (u0.ndim != 3 or dtype != torch.float32
+                or not adv_lap.adv_lap3_fits(u0.shape, u0.device)
                 or not megastep.rk3_mega_supported(scheme, d2, u0.shape, dtype, u0.device)):
             return None
         axy, r = adv_lap.adv_lap_rhs3(tuple(u), dz, dy, dx, scheme, d2)

@@ -22,10 +22,10 @@ adds to them. ``launch`` is the bare launch, with the kernel's ``acc``
 epilogue (``f' + acc``), for ``ops/pair.py``, which counts its own calls.
 
 The y phase of ``csrc/xy_phase.cuh`` (K3, K5, K6, K9, K13) runs the same
-chains down the y-lines of a block's columns, on the tables that
-``y_tables`` gives its wrappers. Where even one column's tiles pass the
-card's shared memory (a pair on y-lines of some 29,000 points) it walks
-one thread a column instead; ``Y_WALKS`` counts the launches that did.
+chains down the y-lines of a block's columns staged in shared memory, on
+the tables that ``y_tables`` gives its wrappers; ``y_phase_fits`` says
+where one column's tiles fit the card's opt-in maximum, and the wrappers'
+predicates decline the y-lines where they do not.
 """
 
 from __future__ import annotations
@@ -41,13 +41,12 @@ from . import _native
 from .dense import dense_derivative
 
 __all__ = [
-    "LAUNCHES", "MODE_LAUNCHES", "Y_WALKS", "chain_table", "launch", "lane_derivative",
-    "lane_derivative_ref", "line_nb", "y_tables", "y_tile_bytes",
+    "LAUNCHES", "MODE_LAUNCHES", "chain_table", "launch", "lane_derivative",
+    "lane_derivative_ref", "line_nb", "y_phase_fits", "y_tables", "y_tile_bytes",
 ]
 
 LAUNCHES = 0
 MODE_LAUNCHES = {"derivative": 0, "filter": 0}
-Y_WALKS = 0
 
 CHAIN_ROWS = 32  # the fewest rows of a chain
 CHAIN_MAX = 128  # the most chains line_nb gives a line
@@ -130,21 +129,28 @@ def y_tile_bytes(ny: int, nb: int, tiles: int, cols: int = 1) -> int:
     return 4 * cols * tiles * (ny + 2 * nb)
 
 
+def y_phase_fits(ny: int, tiles: int, device) -> bool:
+    """Whether the staged y phase takes y-lines of ``ny`` points with
+    ``tiles`` tiles a column (two for a pair) on ``device``: one column's
+    tiles and faces within ``_native.smem_limit(device)``. Off the card no
+    limit holds."""
+    limit = _native.smem_limit(device)
+    return limit is None or y_tile_bytes(ny, line_nb(ny), tiles) <= limit
+
+
 def y_tables(schemes, ny: int, dy, device):
     """``(nb, [(Coef, float32 table on device, h, win) a scheme])``: what the
     y phase of ``csrc/xy_phase.cuh`` reads for y-lines of ``ny`` points, one
-    tile a scheme of ``schemes`` (a pair's two, or one). Its staged chains
-    take ``nb = line_nb(ny)`` sub-blocks a y-line and each scheme's
-    ``chain_table``; where one column's tiles pass the shared memory a
-    block may take on ``device`` (``megastep.smem_limit``), ``nb`` is 0 and
-    each scheme's per-point table (h = win = 0) serves the column walk. Off
-    the card no limit holds."""
-    from .megastep import smem_limit
-
+    tile a scheme of ``schemes`` (a pair's two, or one): ``nb =
+    line_nb(ny)`` sub-blocks a y-line and each scheme's ``chain_table``.
+    Raises where one column's tiles pass the card's opt-in maximum
+    (``y_phase_fits``)."""
     nb = line_nb(ny)
-    limit = smem_limit(device)
-    if limit is not None and y_tile_bytes(ny, nb, len(schemes)) > limit:
-        return 0, [(*_native.launch_tables(s, ny, float(dy), device), 0, 0) for s in schemes]
+    if not y_phase_fits(ny, len(schemes), device):
+        raise ValueError(
+            f"y phase: a column of {ny} points in {len(schemes)} tiles takes "
+            f"{y_tile_bytes(ny, nb, len(schemes))} bytes of shared memory, past the "
+            f"{_native.smem_limit(device)} a block may take on {device}")
     return nb, [_chain_launch_tables(s, ny, nb, float(dy), device) for s in schemes]
 
 

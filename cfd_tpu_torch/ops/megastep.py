@@ -19,9 +19,9 @@ memory and solves both families there in sub-block chains (``lane.line_nb``
 of them a line, on ``lane.chain_table``), so ``rk3_mega_supported`` takes
 float32 (nz, ny, nx) fields whose z-line both schemes take and whose two
 tiles of one column fit the card's opt-in maximum of shared memory
-(``tile_bytes`` against ``smem_limit``, which asks the device as the
-kernel does: z-lines of up to about 29,000 points on an H100), as the JAX
-predicate declines where its VMEM does not fit. Where it is not, the fused
+(``tile_bytes`` against ``_native.smem_limit``, which asks the device as
+the kernel does: z-lines of up to about 29,000 points on an H100), as the
+JAX predicate declines where its VMEM does not fit. Where it is not, the fused
 substep's tail runs stepwise (``ops/fused_step.py``: K2 with ``mul`` and
 ``acc``, then K2's ``rk`` mode).
 
@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
 
 import torch
 
@@ -40,7 +39,7 @@ from ..schemes import CompactScheme
 from . import _native, lane
 from .dense import dense_apply, dense_derivative
 
-__all__ = ["LAUNCHES", "tile_bytes", "smem_limit", "rk3_mega_supported", "rk3_mega", "rk3_mega_ref"]
+__all__ = ["LAUNCHES", "tile_bytes", "rk3_mega_supported", "rk3_mega", "rk3_mega_ref"]
 
 LAUNCHES = 0
 
@@ -52,37 +51,17 @@ def tile_bytes(nz: int, nb: int, cols: int = 1) -> int:
     return 4 * cols * (2 * nz + 4 * nb)
 
 
-@functools.lru_cache(maxsize=None)
-def _device_smem_limit(index: int) -> int:
-    bytes_ = ctypes.c_int()
-    with torch.cuda.device(index):
-        err = _native.library().cfd_rk3_mega_smem_limit(ctypes.byref(bytes_))
-    _native.check(err, "rk3_mega")
-    return bytes_.value
-
-
-def smem_limit(device) -> Optional[int]:
-    """The shared memory a K4 block may take on ``device``, as the kernel
-    itself asks it (``cfd_rk3_mega_smem_limit``: the device's opt-in
-    maximum); None off the card, where the plain version stages nothing."""
-    device = torch.device(device) if device is not None else None
-    if device is None or device.type != "cuda":
-        return None
-    return _device_smem_limit(device.index if device.index is not None
-                              else torch.cuda.current_device())
-
-
 def rk3_mega_supported(scheme1: CompactScheme, scheme2: CompactScheme, shape, dtype,
                        device=None) -> bool:
     """Whether K4 takes (nz, ny, nx) fields of ``dtype`` for the d1
     ``scheme1`` and the d2 ``scheme2``: a z-line both schemes take, whose
-    two tiles of one column fit ``smem_limit(device)`` on the card."""
+    two tiles of one column fit ``_native.smem_limit(device)`` on the card."""
     if len(shape) != 3 or dtype != torch.float32:
         return False
     nz = shape[0]
     if nz < max(scheme1.min_points(), scheme2.min_points()):
         return False
-    limit = smem_limit(device)
+    limit = _native.smem_limit(device)
     return limit is None or tile_bytes(nz, lane.line_nb(nz)) <= limit
 
 

@@ -92,12 +92,13 @@ def d2_sum_supported(scheme: CompactScheme, ny: int, nx: int, dtype) -> bool:
             and _native.xy_planes_fit(scheme, ny, nx))
 
 
-def adv_pair_supported(scheme: CompactScheme, ny: int, nx: int, dtype) -> bool:
+def adv_pair_supported(scheme: CompactScheme, ny: int, nx: int, dtype, device=None) -> bool:
     """Whether ``"auto"`` and the fused substep take K13 for (..., ny, nx)
-    fields of ``dtype`` and ``scheme``: K7's conditions (one staged x-line
-    within 48 KB, nx <= 12278), as the JAX package routes it; the kernel's
-    chained x phase also takes longer lines."""
-    return pair_supported(scheme, ny, nx, dtype)
+    fields of ``dtype`` and ``scheme`` on ``device``: K7's conditions (one
+    staged x-line within 48 KB, nx <= 12278), as the JAX package routes it
+    (the kernel's chained x phase also takes longer lines), and a column's
+    y tile within the card's opt-in maximum (``lane.y_phase_fits``)."""
+    return pair_supported(scheme, ny, nx, dtype) and lane.y_phase_fits(ny, 1, device)
 
 
 def _check_field(who: str, f, scheme: CompactScheme, order: int) -> None:
@@ -225,7 +226,6 @@ def advection_pair(f, ux, uy, dy, dx, scheme: CompactScheme):
         )
     _native.check(err, "adv_pair")
     ADV_PAIR_LAUNCHES += 1
-    lane.Y_WALKS += int(nby == 0)
     return out
 
 

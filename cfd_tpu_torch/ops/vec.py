@@ -107,7 +107,6 @@ def div_rhs(ux, uy, uz, dz, dy, dx, scheme: CompactScheme):
         )
     _native.check(err, "div_rhs")
     LAUNCHES += 1
-    lane.Y_WALKS += int(nby == 0)
     return r
 
 
@@ -128,11 +127,13 @@ def _fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) ->
     )
 
 
-def div_fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) -> bool:
+def div_fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype,
+                        device=None) -> bool:
     """Whether ``divergence`` takes K6 and the z solve for (nz, ny, nx)
-    fields of ``dtype`` and ``scheme``. The JAX routing: K6's chained x
-    phase also takes longer lines."""
-    return _fused_supported(scheme, nz, ny, nx, dtype)
+    fields of ``dtype`` and ``scheme`` on ``device``. The JAX routing (K6's
+    chained x phase also takes longer lines), and a column's y tile within
+    the card's opt-in maximum (``lane.y_phase_fits``)."""
+    return _fused_supported(scheme, nz, ny, nx, dtype) and lane.y_phase_fits(ny, 1, device)
 
 
 def curl_fused_supported(scheme: CompactScheme, nz: int, ny: int, nx: int, dtype) -> bool:

@@ -131,9 +131,11 @@ script exits non-zero without printing the final line:
               x-lines too long for K3 and K5, so K13 + K9 + K4 per
               substep) against plain float64, at the slices' gates, with
               launch counts.
-7. times    — CUDA-event medians at 256^3, in turns: each kernel against
-              its plain float32 version (and a single PyTorch call where
-              one computes the same function), K5 against three K3
+7. times    — CUDA-event medians at 256^3, in turns, of the kernels no
+              other script times: K2 along y and z and in its solve, acc,
+              mul and filter modes, pair_subtract, K7, K8 and K10, each
+              against its plain float32 version (and a single PyTorch call
+              where one computes the same function); K5 against three K3
               launches, K7 against K1 + K2, K8 against two d2 calls and a
               sum, the Laplacian's two routes and the fused curl against
               the single derivatives and sums they replace, a copy floor,
@@ -141,20 +143,16 @@ script exits non-zero without printing the final line:
               the step of each configuration; the distributed dfdx, dfdy,
               dfdz on (2, 2, 2) whole and split into halo, faces, gather +
               reduced solve and kernels, beside the single-device
-              derivative; K11 and K12 per launch on one shard (periodic,
-              and the closure shard of SCHEME4_D2) against their plain
-              versions and one torch.matmul with the shard's dense
-              operator, with the fraction of their bound they reach; the
-              distributed step on (2, 2, 2) and (1, 2, 2) in
-              turns with the single-device fused step. Shards that share one
-              card measure the distributed algorithm's overhead, not its
-              scaling. At (64, 128, 8192) (and 256^3 for the kernels): K13,
-              K9 and K6 (and K5 at 256^3) with their plain versions, queued
-              (device time alone), beside their bounds; K13 and K2 rk with
-              their unfused
-              compositions, K2 rk with its plain version, the stepwise tail
-              against K4, and each model's step in turns with its generic
-              step.
+              derivative; the distributed step on (2, 2, 2) and (1, 2, 2)
+              in turns with the single-device fused step. Shards that share
+              one card measure the distributed algorithm's overhead, not
+              its scaling. At (64, 128, 8192) and 256^3: K13 and K2 rk with
+              their unfused compositions, K2 rk with its plain version; at
+              (64, 128, 8192) the stepwise tail against K4 and each model's
+              step in turns with its generic step. lane_times.py times K1,
+              K3, K4, K5, K6, K9 and K13, and dist_kernel_times.py K11 and
+              K12 per launch: each kernel's device time is taken by one
+              script.
 8. diag     — the benchmark harness's kernels against their plain versions
               at 256^3: K14 (diag_copy: copy2d over (1024, 256) tiles of
               (65536, 256) and (256, C) tiles of the (256, 65536) dfdz
@@ -166,9 +164,7 @@ script exits non-zero without printing the final line:
               (queued), each in turns with its plain version, beside its
               bound and its library call (Tensor.copy_; torch.matmul in
               float32; torch.bmm of bf16 casts with a float32 output; rolls:
-              its unfused torch.roll form), and
-              K1 at (64, 64, 512), (32768, 512) and (64, 128, 8192), queued,
-              beside its plain version, its library call and its bound.
+              its unfused torch.roll form).
 9. bench_scripts — each ported benchmark script's main
               (cfd_tpu_torch/benchmarks/) on the card, in this process, with
               the launch counts zeroed before and read after each: diag_lane
@@ -178,15 +174,9 @@ script exits non-zero without printing the final line:
               (2, 2, 2) at 256^3, diag_axes, diag_rk3 and diag_ns at 128^3.
               A failed gate or an error row fails the run; so does a script
               that launched none of its path's kernels.
-10. phase_split — the durations of the y and x phase kernels of K13, K9
-              and K6 at (64, 128, 8192) and 256^3 and of K5 at 256^3, by
-              torch.profiler (after the scripts, which read profiler
-              captures themselves).
-11. y_phase — the launches of K3, K5, K6, K9 and K13 on the paths above,
+10. y_phase — the launches of K3, K5, K6, K9 and K13 on the paths above,
               whose y phase ran as staged y-tile chains
-              (csrc/xy_phase.cuh xy_y_kernel), and lane.Y_WALKS, the y
-              phases that walked one thread a column instead over the whole
-              run: any such walk fails the run.
+              (csrc/xy_phase.cuh xy_y_kernel).
 
 The second-to-last line is the per-kernel summary; the last line is
 {"ok": true, "device": {...}}.
@@ -228,7 +218,6 @@ from cfd_tpu_torch.parallel.fused import make_gradient_distributed
 from cfd_tpu_torch.benchmarks import diag_dfdz as bench_dfdz
 from cfd_tpu_torch.benchmarks.diag_dfdz import BF16_F64_GATE, BF16_GATE, DOTS_GATE
 from cfd_tpu_torch.utils import cuda_time_ms
-from cfd_tpu_torch.utils.profiling import kernel_ms_by_name
 # The card's published rates (NVIDIA H100 SXM data sheet, at 700 W). The
 # bound of a kernel is the larger of its least bytes over HBM and its
 # operations over the peak for their type.
@@ -445,28 +434,22 @@ def path(**launches) -> dict:
     return {name: launches.get(name, 0) for name in KERNELS}
 
 
-# Least bytes each kernel must move per point at the timed call (f32 inputs
-# read once, outputs written once: K5 3 reads and 6 writes, K6 3 and 1,
-# pair_subtract 3 and 2, the K2 modes 1 + one per mul/acc and 1, K7 1 and 2,
-# K8 and K9 1 and 1, K10 3 and 3, K13 3 and 1, K2's rk mode 4 (r, adv, fin,
-# q) and 2), and the operations it does per point, counted from its
-# arithmetic (line RHS ~17, forward sweep 4, backward 5; K6 and K9 two line
-# solves, T_z and B_z; K5 three K3s; K7 and K8 two line solves; K10 four,
-# two T_z and two B_z; a filter's line RHS ~21 with its three offsets; K13
-# two line solves and 3 for the weights; K2 rk the solve's 9 and 6 for the
-# update).
-BYTES_PER_POINT = {"compact_lane": 8, "compact_strided": 8, "adv_lap": 20, "rk3_mega": 28,
-                   "compact_strided_solve": 8, "compact_strided_acc": 12,
-                   "compact_strided_mul": 16, "pair_subtract": 20, "adv_lap3": 36,
-                   "div_rhs": 16, "compact_lane_filter": 8, "compact_strided_filter": 8,
-                   "gradient_pair": 12, "d2_sum": 8, "lap_rhs": 8, "curl_rhs": 24,
-                   "adv_pair": 16, "compact_strided_rk": 24}
-FLOPS_PER_POINT = {"compact_lane": 26, "compact_strided": 26, "adv_lap": 127, "rk3_mega": 44,
-                   "compact_strided_solve": 9, "compact_strided_acc": 27,
-                   "compact_strided_mul": 28, "pair_subtract": 54, "adv_lap3": 381,
-                   "div_rhs": 64, "compact_lane_filter": 30, "compact_strided_filter": 30,
-                   "gradient_pair": 52, "d2_sum": 53, "lap_rhs": 64, "curl_rhs": 128,
-                   "adv_pair": 55, "compact_strided_rk": 15}
+# Least bytes each kernel timed here must move per point at the timed call
+# (f32 inputs read once, outputs written once: pair_subtract 3 reads and 2
+# writes, the K2 modes 1 + one per mul/acc and 1, K7 1 and 2, K8 1 and 1,
+# K10 3 and 3, K2's rk mode 4 (r, adv, fin, q) and 2), and the operations
+# it does per point, counted from its arithmetic (line RHS ~17, forward
+# sweep 4, backward 5; K7 and K8 two line solves; K10 four, two T_z and two
+# B_z; a filter's line RHS ~21 with its three offsets; K2 rk the solve's 9
+# and 6 for the update).
+BYTES_PER_POINT = {"compact_strided": 8, "compact_strided_solve": 8, "compact_strided_acc": 12,
+                   "compact_strided_mul": 16, "pair_subtract": 20,
+                   "compact_strided_filter": 8, "gradient_pair": 12, "d2_sum": 8,
+                   "curl_rhs": 24, "compact_strided_rk": 24}
+FLOPS_PER_POINT = {"compact_strided": 26, "compact_strided_solve": 9, "compact_strided_acc": 27,
+                   "compact_strided_mul": 28, "pair_subtract": 54,
+                   "compact_strided_filter": 30, "gradient_pair": 52, "d2_sum": 53,
+                   "curl_rhs": 128, "compact_strided_rk": 15}
 
 
 def emit(obj) -> None:
@@ -1418,15 +1401,12 @@ def phase_long_slice(dev, name) -> dict:
 
 
 def _long_times(dev, smi) -> dict:
-    """CUDA-event medians at LONG f32 (and K13, K9, K6, K4, K5, K3, K2 rk at
-    256^3), in turns: K13, K9, K6 and K4 (and K5 and K3 at 256^3) with their
-    plain versions, queued (device time alone), beside their bounds (their
-    y and x phases, K4's one kernel: phase_split); K13
-    and K2 rk with their unfused compositions
-    (row 16: K7, two multiplies and an add; row 7: K2 solve_only and the
-    elementwise update), K2 rk with its plain version, the stepwise tail
-    against K4, and each model's step against its generic step at the same
-    shape."""
+    """CUDA-event medians at LONG f32 and 256^3, in turns: K13 and K2 rk
+    with their unfused compositions (row 16: K7, two multiplies and an add;
+    row 7: K2 solve_only and the elementwise update), K2 rk with its plain
+    version, the stepwise tail against K4 (LONG), and each model's step
+    against its generic step at LONG. The device times of K13, K9, K6, K5,
+    K3 and K4 themselves are lane_times.py's."""
     g = torch.Generator(device=dev).manual_seed(20261020)
     s1, s2 = FUSED_PAIRS[0]
     times = {}
@@ -1434,46 +1414,15 @@ def _long_times(dev, smi) -> dict:
         dz, dy, dx = _spacing(shape)
         key = "x".join(map(str, shape))
         f, ux, uy, uz, r, q = (torch.randn(shape, generator=g, device=dev) for _ in range(6))
-        # K13 and K9, device time alone, beside their bounds
-        k13 = lambda: pair.advection_pair(f, ux, uy, dy, dx, s1)
-        k9 = lambda: adv_lap.lap_rhs(f, dz, dy, dx, s2)
-        times[f"adv_pair_{key}"] = _turns(lambda: pair.advection_pair_ref(f, ux, uy, dy, dx, s1),
-                                          k13, queued=True)
-        times[f"lap_rhs_{key}"] = _turns(lambda: adv_lap.lap_rhs_ref(f, dz, dy, dx, s2), k9,
-                                         queued=True)
-        # K6 as the NS projection calls it (LONG and 256^3) and K5 as the NS
-        # and Burgers steps do (256^3; it takes no line past 6134), likewise
-        times[f"div_rhs_{key}"] = _turns(lambda: vec.div_rhs_ref(f, ux, uy, dz, dy, dx, s1),
-                                         lambda: vec.div_rhs(f, ux, uy, dz, dy, dx, s1),
-                                         queued=True)
-        # K4 (the middle substep: q in, q' out) as every fused step calls it
-        times[f"rk3_mega_{key}"] = _turns(
-            lambda: megastep.rk3_mega_ref(f, r, ux, uz, q, s1, s2, dz, **RK3_MID),
-            lambda: megastep.rk3_mega(f, r, ux, uz, q, s1, s2, dz, **RK3_MID), queued=True)
-        names = ["adv_pair", "lap_rhs", "div_rhs", "rk3_mega"]
-        if shape != LONG:
-            u = (f, ux, uy)
-            times[f"adv_lap3_{key}"] = _turns(
-                lambda: adv_lap.adv_lap_rhs3_ref(u, dz, dy, dx, s1, s2),
-                lambda: adv_lap.adv_lap_rhs3(u, dz, dy, dx, s1, s2), queued=True)
-            # K3 as the fused advection–diffusion step calls it
-            times[f"adv_lap_{key}"] = _turns(
-                lambda: adv_lap.adv_lap_rhs_ref(f, ux, uy, dz, dy, dx, s1, s2),
-                lambda: adv_lap.adv_lap_rhs(f, ux, uy, dz, dy, dx, s1, s2), queued=True)
-            names += ["adv_lap3", "adv_lap"]
-        for name in names:
-            t = times[f"{name}_{key}"]
-            t["bound_ms"] = BYTES_PER_POINT[name] * f.numel() / HBM_BYTES_PER_S * 1e3
-            t["nb"] = lane.line_nb(shape[0] if name == "rk3_mega" else shape[-1])
 
         def k7_unfused():
             fx, fy = pair.gradient_pair(f, dy, dx, s1)
             return ux * fx + uy * fy
 
-        t = _turns(k7_unfused, k13)
-        times[f"adv_pair_{key}"]["unfused_ms"] = t["plain_ms"]
-        times[f"adv_pair_{key}"]["unfused_readings_ms"] = [t["kernel_readings_ms"],
-                                                           t["plain_readings_ms"]]
+        t = _turns(k7_unfused, lambda: pair.advection_pair(f, ux, uy, dy, dx, s1))
+        times[f"adv_pair_vs_unfused_{key}"] = {
+            "adv_pair_ms": t["kernel_ms"], "unfused_ms": t["plain_ms"],
+            "readings_ms": [t["kernel_readings_ms"], t["plain_readings_ms"]]}
         rk = dict(a=RK3_MID["a"], b=RK3_MID["b"], dt=DT, nu=NU)
         adv = strided.strided_derivative(f, dz, s1, 0, mul=uz, acc=ux)
         times[f"compact_strided_rk_{key}"] = _turns(
@@ -1495,7 +1444,6 @@ def _long_times(dev, smi) -> dict:
             times["stepwise_tail_vs_k4_long"] = {
                 "stepwise_tail_ms": t["kernel_ms"], "k4_ms": t["plain_ms"],
                 "readings_ms": [t["kernel_readings_ms"], t["plain_readings_ms"]]}
-            times["dfdx_long_ms"] = cuda_time_ms(lambda: ct.dfdx(f, dx, s1))
             out = torch.empty_like(f)
             times["copy_long_ms"] = cuda_time_ms(lambda: out.copy_(f))
             del axy, out
@@ -1516,38 +1464,6 @@ def _long_times(dev, smi) -> dict:
     emit({"phase": "long_times", "device": smi, "shape": list(LONG), "dtype": "float32",
           "schemes": [s1.name, s2.name], **times, "steps": steps})
     return times
-
-
-def phase_split(dev, smi) -> dict:
-    """The durations of the y and x phase kernels of K13, K9 and K6 at LONG
-    and 256^3 f32, and of K5 and K3 at 256^3, and of K4's kernel at both,
-    by torch.profiler
-    (``kernel_ms_by_name``): the two kernels of one call apart. Run last,
-    after the benchmark scripts, whose timelines are read from profiler
-    captures too."""
-    g = torch.Generator(device=dev).manual_seed(20261021)
-    s1, s2 = FUSED_PAIRS[0]
-    phases = {}
-    for shape in (LONG, (N, N, N)):
-        dz, dy, dx = _spacing(shape)
-        key = "x".join(map(str, shape))
-        f, ux, uy = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
-        phases[f"adv_pair_{key}"] = kernel_ms_by_name(
-            lambda: pair.advection_pair(f, ux, uy, dy, dx, s1))
-        phases[f"lap_rhs_{key}"] = kernel_ms_by_name(lambda: adv_lap.lap_rhs(f, dz, dy, dx, s2))
-        phases[f"div_rhs_{key}"] = kernel_ms_by_name(
-            lambda: vec.div_rhs(f, ux, uy, dz, dy, dx, s1))
-        phases[f"rk3_mega_{key}"] = kernel_ms_by_name(
-            lambda: megastep.rk3_mega(f, ux, uy, f, ux, s1, s2, dz, **RK3_MID))
-        if shape != LONG:
-            phases[f"adv_lap3_{key}"] = kernel_ms_by_name(
-                lambda: adv_lap.adv_lap_rhs3((f, ux, uy), dz, dy, dx, s1, s2))
-            phases[f"adv_lap_{key}"] = kernel_ms_by_name(
-                lambda: adv_lap.adv_lap_rhs(f, ux, uy, dz, dy, dx, s1, s2))
-        del f, ux, uy
-    emit({"phase": "phase_split", "device": smi, "dtype": "float32", "phases_ms": phases,
-          "note": "mean device ms a call spends in each kernel, by kernel name"})
-    return phases
 
 
 # ---------------------------------------------------------------------------
@@ -1863,81 +1779,15 @@ def phase_dist_slice(dev, name) -> dict:
     return launches
 
 
-def _shard_operator(block, dx, with_ab=True):
-    """The dense float64 operator of one shard's solve over its extended
-    input [hl; f; hr (; a; b)]: T_r^{-1} B_ext / dx**order (and the unit
-    loads), (nl, nl + 2w (+ 2)): the library call's matrix."""
-    scheme = block.scheme
-    nl, w = block.nl, scheme.stencil_width
-    eye = torch.eye(nl + 2 * w, dtype=torch.float64)
-    cols = [dist.solve_lines_tables_ref(eye[w:w + nl], eye[:w], eye[w + nl:], 1 / dx, block)]
-    if with_ab:
-        cols += [torch.from_numpy(block.suh)[:, None], torch.from_numpy(block.slh)[:, None]]
-    return torch.cat(cols, 1)
-
-
-def _dist_kernel_times(times, g, dev) -> None:
-    """K11 and K12 per launch on one 128^3 shard of 256^3 over (2, 2, 2):
-    the first shard of SCHEME4_PERIODIC, and the first shard of SCHEME4_D2
-    (keys ending in ``_d2_first``), whose chain 0 forms the closure rows; K12
-    on the flat lines of one shard of 256^3 over (1, 1, 4). Each in turns
-    with its plain float32 version, beside the library call (one
-    torch.matmul with the shard's dense operator over the extended input,
-    halos and interface weights concatenated) and its bound: the least
-    bytes (f, halos and weights read once, f' written once) over the
-    card's published rate, and the fraction of it the kernel reaches. A
-    launch takes less device time than its wrapper takes on the host, so
-    every call is timed queued behind a spin kernel (device time alone);
-    ``kernel_host_ms`` is the kernel's time with the host's issue time in
-    it, as the plain timer reads it."""
-    d = 2 * math.pi / N
-    s = (N // 2,) * 3
-
-    def record(key, plain, kernel, lib, f, *rest):
-        times[key] = _turns(plain, kernel, queued=True)
-        times[key]["library_ms"] = cuda_time_ms(lib, queued=True)
-        times[key]["kernel_host_ms"] = cuda_time_ms(kernel)
-        times[key]["bytes"] = 4 * (2 * f.numel() + sum(t.numel() for t in rest))
-        times[key]["points"] = f.numel()
-        times[key]["shape"] = list(f.shape)
-        times[key]["bound_ms"] = times[key]["bytes"] / HBM_BYTES_PER_S * 1e3
-        times[key]["bound_fraction"] = times[key]["bound_ms"] / times[key]["kernel_ms"]
-
-    for scheme, suffix in ((ct.SCHEME4_PERIODIC, ""), (ct.SCHEME4_D2, "_d2_first")):
-        block = shard_blocks(scheme, N, 2)[0]
-        M = _shard_operator(block, d).to(dev, torch.float32)
-        for key, axis in (("lane_dist", 2), ("strided_dist_y", 1), ("strided_dist_z", 0)):
-            f, hl, hr, ab = _dist_inputs(g, dev, scheme, 0, 2, s, axis)
-            ext = torch.cat([hl, f, hr, ab], axis)
-            if axis == 2:
-                plain = lambda: dist.lane_dist_derivative_ref(f, hl, hr, ab, d, block)
-                kernel = lambda: dist.lane_dist_derivative(f, hl, hr, ab, d, block)
-                lib = lambda: torch.matmul(ext, M.T)
-            else:
-                plain = lambda: dist.sublane_dist_derivative_ref(f, hl, hr, ab, d, block,
-                                                                 axis=axis)
-                kernel = lambda: dist.sublane_dist_derivative(f, hl, hr, ab, d, block, axis=axis)
-                flat = ext.view(ext.shape[0], -1) if axis == 0 else ext
-                lib = lambda: torch.matmul(M, flat)
-            record(key + suffix, plain, kernel, lib, f, hl, hr, ab)
-    scheme = ct.SCHEME4_PERIODIC
-    block = shard_blocks(scheme, N, 4)[1]
-    f, hl, hr, _ = _dist_inputs(g, dev, scheme, 1, 4, (N // 4, N * N), 0)
-    ext = torch.cat([hl, f, hr])
-    M = _shard_operator(block, d, with_ab=False).to(dev, torch.float32)
-    record("strided_dist_lines", lambda: dist.solve_lines_tables_ref(f, hl, hr, 1 / d, block),
-           lambda: dist.solve_lines_tables(f, hl, hr, 1 / d, block),
-           lambda: torch.matmul(M, ext), f, hl, hr)
-
-
 def phase_dist_times(dev, smi) -> dict:
     """CUDA-event medians at 256^3 f32: the distributed dfdx, dfdy, dfdz on
     (2, 2, 2) (SCHEME4_PERIODIC) whole and split into halo, faces, gather +
     reduced solve and kernels (the kernels' 8 launches also queued: their
-    device time alone), beside the single-device derivative; K11 and
-    K12 per launch; the distributed step on (2, 2, 2) and (1, 2, 2) in turns
-    with the single-device fused step. Eight (four) shards on one card
-    measure the distributed algorithm's overhead, not its scaling."""
+    device time alone), beside the single-device derivative; the
+    distributed step on (2, 2, 2) and (1, 2, 2) in turns with the
+    single-device fused step. Eight (four) shards on one card measure the
+    distributed algorithm's overhead, not its scaling. K11 and K12 per
+    launch are dist_kernel_times.py's."""
     g = torch.Generator(device=dev).manual_seed(20261019)
     dx = 2 * math.pi / N
     scheme = ct.SCHEME4_PERIODIC
@@ -1968,7 +1818,6 @@ def phase_dist_times(dev, smi) -> dict:
                 lambda: ct.derivative(F, dx, scheme, axis=axis - 3, method="kernel")),
         }
     del Fs, left, right, faces, ab, wts
-    _dist_kernel_times(times, g, dev)
 
     model, f0, u = _model(dev, scheme, "auto", torch.float32, True)
     single = lambda: model.step(f0, u, DT)
@@ -2028,8 +1877,9 @@ def _z_library_ms(M, f, acc=None, mul=None) -> float:
 
 
 def _slice3_times(times, f, g, dev) -> None:
-    """K2's modes, pair_subtract, K6 and K5 at 256^3 as the Navier–Stokes
-    step calls them, each in turns with its plain float32 version."""
+    """K2's modes and pair_subtract at 256^3 as the Navier–Stokes step calls
+    them, each in turns with its plain float32 version; K5 against the
+    three K3 launches it replaces; the spectral subsystem."""
     dx = 2 * math.pi / N
     s1, s2 = FUSED_PAIRS[0]
     a, m = (torch.randn((N, N, N), generator=g, device=dev) for _ in range(2))
@@ -2049,11 +1899,7 @@ def _slice3_times(times, f, g, dev) -> None:
         dense.dense_operator(s1, N) / dx, f, acc=a, mul=m)
     times["pair_subtract"] = _turns(lambda: pair.pair_subtract_ref(f, a, m, dx, dx, s1),
                                     lambda: pair.pair_subtract(f, a, m, dx, dx, s1))
-    times["div_rhs"] = _turns(lambda: vec.div_rhs_ref(f, a, m, dx, dx, dx, s1),
-                              lambda: vec.div_rhs(f, a, m, dx, dx, dx, s1))
     u = (f, a, m)
-    times["adv_lap3"] = _turns(lambda: adv_lap.adv_lap_rhs3_ref(u, dx, dx, dx, s1, s2),
-                               lambda: adv_lap.adv_lap_rhs3(u, dx, dx, dx, s1, s2))
     # K5 against the three K3 launches it replaces, in turns
     t = _turns(lambda: [adv_lap.adv_lap_rhs(c, f, a, dx, dx, dx, s1, s2) for c in u],
                lambda: adv_lap.adv_lap_rhs3(u, dx, dx, dx, s1, s2))
@@ -2071,14 +1917,14 @@ def _slice3_times(times, f, g, dev) -> None:
 
 
 def _slice4_times(times, f, g, dev) -> None:
-    """K7-K10 and the filter mode at 256^3, each in turns with its plain
-    float32 version, and each fused route in turns with the unfused
+    """K7, K8, K10 and K2's filter mode at 256^3, each in turns with its
+    plain float32 version, and each fused route in turns with the unfused
     composition of kernels it replaces; the diagnostics of a velocity."""
     dx = 2 * math.pi / N
     s1, s2 = FUSED_PAIRS[0]
     walls = ct.SCHEME4_D2
     filt = ct.get_filter(6, 0.45, periodic=False)
-    for name, axis in (("filter_x", -1), ("filter_y", -2), ("filter_z", -3)):
+    for name, axis in (("filter_y", -2), ("filter_z", -3)):
         def run(method, axis=axis):
             return lambda: ct.derivative(f, 1.0, filt, axis=axis, method=method)
         times[name] = _turns(run("matmul"), run("kernel"))
@@ -2089,8 +1935,6 @@ def _slice4_times(times, f, g, dev) -> None:
                                     lambda: pair.gradient_pair(f, dx, dx, s1))
     times["d2_sum"] = _turns(lambda: pair.d2_pair_sum_ref(f, dx, dx, walls),
                              lambda: pair.d2_pair_sum(f, dx, dx, walls))
-    times["lap_rhs"] = _turns(lambda: adv_lap.lap_rhs_ref(f, dx, dx, dx, s2),
-                              lambda: adv_lap.lap_rhs(f, dx, dx, dx, s2))
     a, m = (torch.randn((N, N, N), generator=g, device=dev) for _ in range(2))
     u = (f, a, m)
     times["curl_rhs"] = _turns(lambda: vec.curl_rhs_ref(f, a, m, dx, dx, dx, s1),
@@ -2148,40 +1992,24 @@ def _velocity_step_times(steps, dev) -> None:
 
 
 def phase_times(dev, smi) -> dict:
+    """CUDA-event medians at 256^3 f32 of what lane_times.py and
+    dist_kernel_times.py do not time: K2 along y and z, each in turns with
+    its plain float32 version and beside its library call, K2's other
+    modes, K7, K8, K10, pair_subtract, the fused routes against the
+    compositions they replace, the spectral subsystem and the diagnostics
+    (``_slice3_times``, ``_slice4_times``), a copy floor, and each
+    configuration's step."""
     g = torch.Generator(device=dev).manual_seed(7)
     f = torch.randn((N, N, N), generator=g, device=dev)
     dx = 2 * math.pi / N
     s1, s2 = FUSED_PAIRS[0]
     times = {}
-    for scheme, names in ((s1, ("dfdx", "dfdy", "dfdz")), (s2, ("d2fdx2", "d2fdy2", "d2fdz2"))):
-        for axis, name in zip((-1, -2, -3), names):
+    for scheme, names in ((s1, ("dfdy", "dfdz")), (s2, ("d2fdy2", "d2fdz2"))):
+        for axis, name in zip((-2, -3), names):
             def run(method, axis=axis, scheme=scheme):
                 return lambda: ct.derivative(f, dx, scheme, axis=axis, method=method)
             times[name] = _turns(run("matmul"), run("kernel"))
             times[name]["library_ms"] = _library_ms(f, scheme, dx, axis)
-    # K1 at n = 512, pallas_lane's roll-form regime, at phase 3's shape
-    f512 = torch.randn(N512, generator=g, device=dev)
-    times["dfdx_512"] = _turns(
-        lambda: ct.dfdx(f512, 0.01, s1, method="matmul"),
-        lambda: ct.dfdx(f512, 0.01, s1, method="kernel"),
-    )
-    times["dfdx_512"]["library_ms"] = _library_ms(f512, s1, 0.01, -1)
-    times["dfdx_512"]["shape"] = list(N512)
-    # K3 and K4 as the fused step's middle substep calls them
-    ux, uy, uz, r, axy, q = (torch.randn((N, N, N), generator=g, device=dev) for _ in range(6))
-    times["adv_lap"] = _turns(
-        lambda: adv_lap.adv_lap_rhs_ref(f, ux, uy, dx, dx, dx, s1, s2),
-        lambda: adv_lap.adv_lap_rhs(f, ux, uy, dx, dx, dx, s1, s2),
-    )
-    times["rk3_mega"] = _turns(
-        lambda: megastep.rk3_mega_ref(f, r, axy, uz, q, s1, s2, dx, **RK3_MID),
-        lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, dx, **RK3_MID),
-    )
-    # K4 on the first substep (no q in) and the last (no q' out)
-    times["rk3_mega_first_ms"] = cuda_time_ms(
-        lambda: megastep.rk3_mega(f, r, axy, uz, None, s1, s2, dx, **RK3_MID))
-    times["rk3_mega_last_ms"] = cuda_time_ms(
-        lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, dx, **RK3_MID, write_q=False))
     _slice3_times(times, f, g, dev)
     _slice4_times(times, f, g, dev)
     out = torch.empty_like(f)
@@ -2206,7 +2034,6 @@ def phase_times(dev, smi) -> dict:
     emit({
         "phase": "times", "device": smi, "schemes": [s1.name, s2.name], "shape": [N, N, N],
         "dtype": "float32", **times, "copy_floor_ms": copy_ms,
-        "dfdx_points_per_s": pts / (times["dfdx"]["kernel_ms"] * 1e-3),
         "copy_GB_per_s": 2 * 4 * pts / (copy_ms * 1e-3) / 1e9, **steps,
     })
     return {**times, "copy_floor_ms": copy_ms}
@@ -2284,10 +2111,8 @@ def phase_diag(dev, smi) -> dict:
     one PyTorch call that computes the same function (Tensor.copy_ for the
     copies; torch.matmul(T, f.view(2, 128, L)) for dots; for dots_default
     the same as torch.bmm of the bf16 casts, made inside the call, with a
-    float32 output; rolls has none: its unfused torch.roll form is timed);
-    and K1 at (64, 64, 512), (32768, 512) and (64, 128, 8192) (row 2),
-    queued, beside its plain version, its library call (queued too) and
-    its bound."""
+    float32 output; rolls has none: its unfused torch.roll form is
+    timed)."""
     stats = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS if k.startswith("diag")}
     failures = []
     g = torch.Generator(device=dev).manual_seed(20261025)
@@ -2333,21 +2158,6 @@ def phase_diag(dev, smi) -> dict:
                 g1 = torch.roll(xz, -1, 0) - xz
                 return g1 + torch.roll(g1, 1, 0)
             times[key]["unfused_ms"] = cuda_time_ms(unfused, **q)
-    # row 2: K1 on lines of 512 and 8192 points, device time alone
-    dx = 0.01
-    for shape in (N512, (N * N // 2, 2 * N), LONG):
-        n = shape[-1]
-        f = torch.randn(shape, generator=g, device=dev)
-        M = torch.as_tensor(dense.dense_operator(ct.SCHEME4_PERIODIC, n) / dx,
-                            dtype=torch.float32, device=dev).T.contiguous()
-        t = _turns(lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC, method="matmul"),
-                   lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC, method="kernel"), **q)
-        t["library_ms"] = cuda_time_ms(lambda: torch.matmul(f.view(-1, n), M), **q)
-        t["kernel_host_ms"] = cuda_time_ms(lambda: ct.dfdx(f, dx, ct.SCHEME4_PERIODIC))
-        t["bound_ms"] = 8 * f.numel() / HBM_BYTES_PER_S * 1e3
-        t["nb"] = lane.line_nb(n)
-        times[f"compact_lane_n{n}_{'x'.join(map(str, shape))}"] = t
-        del M
     emit({"phase": "diag_times", "device": smi, "dtype": "float32", "copy_floor_ms": copy_ms,
           **times, "note": "queued: every call issued behind a spin kernel, device time alone"})
     return {"stats": stats, "times": times}
@@ -2409,19 +2219,32 @@ def phase_bench_scripts(dev) -> dict:
     return launches
 
 
-def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
+# the kernels whose device time another script takes, by script
+TIMED_BY = {**dict.fromkeys(("compact_lane", "compact_lane_filter", "adv_lap", "rk3_mega",
+                             "adv_lap3", "div_rhs", "lap_rhs", "adv_pair"), "lane_times.py"),
+            **dict.fromkeys(("lane_dist", "strided_dist", "strided_dist_lines"),
+                            "dist_kernel_times.py")}
+
+
+def _row(name, stats, launches) -> dict:
+    """A kernel's summary row: its source, its launches on the paths above
+    (and by path) and its largest errors against its plain version."""
+    return {"name": name, "route": "cuda", **KERNELS[name],
+            "launches": sum(by_path[name] for by_path in launches.values()),
+            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()
+                                 if by_path[name]},
+            "max_abs_err": stats[name]["max_abs_err"],
+            "max_rel_err": stats[name]["max_rel_err"]}
+
+
+def _summary(stats, launches, times, long_times, diag_out) -> list:
     pts = N**3
     copy_rate = 2 * 4 * pts / (times["copy_floor_ms"] * 1e-3)  # bytes/s, this run
     timed = {
-        "compact_lane": ("dfdx",),
         "compact_strided": ("dfdy", "dfdz"),  # K2 serves y and z equally often
-        "adv_lap": ("adv_lap",),
-        "rk3_mega": ("rk3_mega",),
         **{name: (name,) for name in (
             "compact_strided_solve", "compact_strided_acc", "compact_strided_mul",
-            "pair_subtract", "adv_lap3", "div_rhs", "gradient_pair", "d2_sum", "lap_rhs",
-            "curl_rhs")},
-        "compact_lane_filter": ("filter_x",),
+            "pair_subtract", "gradient_pair", "d2_sum", "curl_rhs")},
         "compact_strided_filter": ("filter_y", "filter_z"),
     }
     rows = []
@@ -2432,11 +2255,7 @@ def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
         op_ms = FLOPS_PER_POINT[name] * pts / F32_FLOPS_PER_S * 1e3
         lib = [times[k]["library_ms"] for k in keys if "library_ms" in times[k]]
         rows.append({
-            "name": name, "route": "cuda", **KERNELS[name],
-            "launches": sum(by_path[name] for by_path in launches.values()),
-            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()},
-            "max_abs_err": stats[name]["max_abs_err"],
-            "max_rel_err": stats[name]["max_rel_err"],
+            **_row(name, stats, launches),
             "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -2444,64 +2263,27 @@ def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
             "library_ms": sum(lib) / len(lib) if lib else None,
             "timed": [f"{k} {N}^3 f32" for k in keys],
         })
-    # the shard-local kernels: per launch on one shard of 256^3 (K12 along
-    # y and z averaged), device time alone (queued; host_ms with the host's
-    # issue time), bound by the shard's least bytes (f, halos and weights
-    # read once, f' written once; ~26 flops a point as K1/K2)
-    for name, keys in (("lane_dist", ("lane_dist",)),
-                       ("strided_dist", ("strided_dist_y", "strided_dist_z")),
-                       ("strided_dist_lines", ("strided_dist_lines",))):
-        mean = lambda field: sum(dist_times[k][field] for k in keys) / len(keys)
-        byte_ms = mean("bytes") / HBM_BYTES_PER_S * 1e3
-        op_ms = 26 * mean("points") / F32_FLOPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", **KERNELS[name],
-            "launches": sum(by_path[name] for by_path in launches.values()),
-            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()
-                                 if by_path[name]},
-            "max_abs_err": stats[name]["max_abs_err"],
-            "max_rel_err": stats[name]["max_rel_err"],
-            "ms": mean("kernel_ms"), "plain_ms": mean("plain_ms"),
-            "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "copy_bound_ms": mean("bytes") / copy_rate * 1e3,
-            "library_ms": mean("library_ms"), "host_ms": mean("kernel_host_ms"),
-            "timed": [f"{k} per launch, shard {dist_times[k]['shape']} f32" for k in keys],
-        })
-    # the stepwise substep's kernels at LONG, the shape whose path runs them
-    key = "x".join(map(str, LONG))
-    for name in ("adv_pair", "compact_strided_rk"):
-        t = long_times[f"{name}_{key}"]
-        nbytes = BYTES_PER_POINT[name] * math.prod(LONG)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = FLOPS_PER_POINT[name] * math.prod(LONG) / F32_FLOPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", **KERNELS[name],
-            "launches": sum(by_path[name] for by_path in launches.values()),
-            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()
-                                 if by_path[name]},
-            "max_abs_err": stats[name]["max_abs_err"],
-            "max_rel_err": stats[name]["max_rel_err"],
-            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "copy_bound_ms": nbytes / (2 * 4 * math.prod(LONG)) * long_times["copy_long_ms"],
-            "library_ms": None,
-            "unfused_ms": t["unfused_ms"],
-            "timed": [f"{name} {LONG} f32"],
-        })
+    # K2's rk mode at LONG, the shape whose path (the stepwise tail) runs it
+    t = long_times[f"compact_strided_rk_{'x'.join(map(str, LONG))}"]
+    nbytes = BYTES_PER_POINT["compact_strided_rk"] * math.prod(LONG)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = FLOPS_PER_POINT["compact_strided_rk"] * math.prod(LONG) / F32_FLOPS_PER_S * 1e3
+    rows.append({
+        **_row("compact_strided_rk", stats, launches),
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": max(byte_ms, op_ms),
+        "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+        "copy_bound_ms": nbytes / (2 * 4 * math.prod(LONG)) * long_times["copy_long_ms"],
+        "library_ms": None, "unfused_ms": t["unfused_ms"],
+        "timed": [f"compact_strided_rk {LONG} f32"],
+    })
     # the diagnosis kernels at 256^3, queued (device time alone)
     for name, t in diag_out["times"].items():
         if name not in KERNELS:
             continue
         bound, bound_by = bench_dfdz.bound_ms(name.removeprefix("diag_dfdz_"), pts)
         rows.append({
-            "name": name, "route": "cuda", **KERNELS[name],
-            "launches": sum(by_path[name] for by_path in launches.values()),
-            "launches_by_path": {p: by_path[name] for p, by_path in launches.items()
-                                 if by_path[name]},
-            "max_abs_err": diag_out["stats"][name]["max_abs_err"],
-            "max_rel_err": diag_out["stats"][name]["max_rel_err"],
+            **_row(name, diag_out["stats"], launches),
             "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
             "copy_bound_ms": 8 * pts / copy_rate * 1e3,
@@ -2512,24 +2294,8 @@ def _summary(stats, launches, times, dist_times, long_times, diag_out) -> list:
             "timed": [f"{name} {next(v for k, v in DIAG_TIMED.items() if name.startswith(k))} "
                       "f32, queued"],
         })
-    # K9, K13, K6 and K4 at LONG (their launches on the long-x paths) and
-    # 256^3, and K5 and K3 at 256^3, queued, with their phases (the chained
-    # x phase and the y phase; K4's one kernel)
-    for name, shapes in (("lap_rhs", (LONG, (N, N, N))), ("adv_pair", (LONG, (N, N, N))),
-                         ("div_rhs", (LONG, (N, N, N))), ("rk3_mega", (LONG, (N, N, N))),
-                         ("adv_lap3", ((N, N, N),)), ("adv_lap", ((N, N, N),))):
-        row = next(r for r in rows if r["name"] == name)
-        row["queued"] = {
-            "x".join(map(str, shape)): {k: long_times[f"{name}_{'x'.join(map(str, shape))}"][k]
-                                        for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                                  "phases_ms", "nb")}
-            for shape in shapes}
-    # row 2: K1 on lines of 512 and 8192 points, queued
-    lane_row = next(r for r in rows if r["name"] == "compact_lane")
-    lane_row["long_lines"] = {
-        key.removeprefix("compact_lane_"): {k: t[k] for k in (
-            "kernel_ms", "plain_ms", "library_ms", "bound_ms", "nb")}
-        for key, t in diag_out["times"].items() if key.startswith("compact_lane_n")}
+    rows += [{**_row(name, stats, launches), "timed_by": script}
+             for name, script in TIMED_BY.items()]
     return rows
 
 
@@ -2549,22 +2315,18 @@ def main() -> None:
         launches.update(phase_stepwise(dev, shape))
     launches.update({name: phase_long_slice(dev, name) for name in LONG_SLICES})
     times = phase_times(dev, smi)
-    dist_times = phase_dist_times(dev, smi)
+    phase_dist_times(dev, smi)
     long_times = _long_times(dev, smi)
     diag_out = phase_diag(dev, smi)
     launches.update(phase_bench_scripts(dev))
-    for key, phases in phase_split(dev, smi).items():
-        long_times[key]["phases_ms"] = phases
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
-    # every launch of K3, K5, K6, K9 and K13 on the paths above ran the
-    # staged y phase of csrc/xy_phase.cuh: none walked columns
+    # the launches of K3, K5, K6, K9 and K13 on the paths above, each of
+    # which ran the staged y phase of csrc/xy_phase.cuh
     y_launches = sum(by_path[k] for by_path in launches.values()
                      for k in ("adv_lap", "adv_lap3", "div_rhs", "lap_rhs", "adv_pair"))
-    emit({"phase": "y_phase", "launches_on_paths": y_launches, "column_walks": lane.Y_WALKS})
-    if lane.Y_WALKS:
-        raise AssertionError(f"{lane.Y_WALKS} y phases walked columns")
-    emit({"kernels": _summary(stats, launches, times, dist_times, long_times, diag_out)})
+    emit({"phase": "y_phase", "launches_on_paths": y_launches})
+    emit({"kernels": _summary(stats, launches, times, long_times, diag_out)})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 

@@ -2,8 +2,10 @@
 """Device time of the kernels that solve whole lines in sub-block chains,
 on one card, queued: K1 (``compact_lane``), and K9 (``lap_rhs``), K13
 (``advection_pair``), K6 (``div_rhs``), K5 (``adv_lap_rhs3``) and K3
-(``adv_lap_rhs``), whose x phase runs the same chains; and K4
-(``rk3_mega``), which runs them down z.
+(``adv_lap_rhs``), whose x and y phases run the same chains; and K4
+(``rk3_mega``), which runs them down z. The one script that times these
+kernels: ``chip_smoke.py`` checks them and times the routes that compose
+them, and ``dist_kernel_times.py`` times K11 and K12.
 
 Times the checkout in the working directory, so that two checkouts can be
 held against each other in one run on one card:
@@ -16,9 +18,10 @@ and ``filter_field`` launch): on cubes of 64, 128 and 256 points a d1
 (SCHEME4_PERIODIC), a d2 (SCHEME4_D2_PERIODIC) and the sixth-order
 periodic filter (row 1 of PERF.md's kernel table); SCHEME4_PERIODIC at
 (64, 64, 512), (32768, 512), (64, 128, 8192) and on the prime line (64,
-128, 8191) (row 2); and, on lines that no divisor cuts into chains of 32
-rows, (256, 256, 257) and (512, 512, 63), SCHEME4_PERIODIC, SCHEME4 and
-the periodic filter. Each is beside its library call (one
+128, 8191) (row 2); the sixth-order filter with closure rows at 256^3;
+and, on lines that no divisor cuts into chains of 32 rows, (256, 256,
+257) and (512, 512, 63), SCHEME4_PERIODIC, SCHEME4 and the periodic
+filter. Each is beside its library call (one
 ``torch.matmul`` with the dense float32 operator, queued too) and its
 byte bound (one read and one write of each point at 3.35 TB/s). K9 (SCHEME4_D2_PERIODIC) and K13 (SCHEME4_PERIODIC),
 as the long-x stepwise substep calls them (rows 17 and 16): at (64, 128,
@@ -35,7 +38,8 @@ chains of 3067 rows, opted in), likewise (three reads and two writes). K4
 (``rk3_mega``, SCHEME4_PERIODIC with SCHEME4_D2_PERIODIC, the middle
 substep: q in, q' out; row 22) at 256^3, (64, 128, 8192), (42, 128, 12278)
 (one chain a z-line), and (257, 64, 256) (nz prime: one chain), beside its
-byte bound (five reads and two writes) and its kernel's duration.
+byte bound (five reads and two writes) and its kernel's duration, and the
+first substep (no q in) and the last (no q' out) at each.
 Every time is taken with CUDA events around calls all issued behind a spin
 kernel (``cuda_time_ms(..., queued=True)``: the kernel plus its launch, no
 host time). Prints the card's name and power limit, then one JSON line;
@@ -75,6 +79,7 @@ CASES = (  # (shape, schemes)
     *(((n, n, n), (ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC, FILTER)) for n in (64, 128, 256)),
     *((shape, (ct.SCHEME4_PERIODIC,)) for shape in ((64, 64, 512), (32768, 512), (64, 128, 8192),
                                                      (64, 128, 8191))),
+    ((256, 256, 256), (ct.get_filter(6, 0.45, periodic=False),)),
     *((shape, (ct.SCHEME4_PERIODIC, ct.SCHEME4, FILTER)) for shape in ((256, 256, 257),
                                                                      (512, 512, 63))),
 )
@@ -143,6 +148,11 @@ def _mega_times(g, dev, res) -> None:
             "kernel_ms": cuda_time_ms(fn, queued=True),
             "bound_ms": MEGA_BYTES * f.numel() / HBM_BYTES_PER_S * 1e3,
             "phases_ms": _profiling.kernel_ms_by_name(fn),
+            "first_ms": cuda_time_ms(
+                lambda: megastep.rk3_mega(f, r, axy, uz, None, s1, s2, d, **rk), queued=True),
+            "last_ms": cuda_time_ms(
+                lambda: megastep.rk3_mega(f, r, axy, uz, q, s1, s2, d, **rk, write_q=False),
+                queued=True),
         }
         del f, r, axy, uz, q
 

@@ -788,12 +788,12 @@ def test_chained_div_rhs_and_adv_lap3_reject_lines_past_their_shared_memory(cuda
 def test_rk3_mega_rejects_z_lines_past_its_shared_memory(cuda):
     """K4 stages two tiles of a column's z-line: at a prime nz (one chain)
     of 29059 points they and the faces take 232,488 bytes, past the opted-in
-    maximum of 232,448 that the device reports (``smem_limit``, the
-    kernel's own query), and ``rk3_mega_supported`` declines it; the prime
-    29033 fits."""
+    maximum of 232,448 that the device reports (``_native.smem_limit``,
+    the kernel's own query), and ``rk3_mega_supported`` declines it; the
+    prime 29033 fits."""
     s1, s2 = FUSED[0]
     kw = dict(a=0.0, b=1.0, dt=1e-3, nu=1e-3)
-    limit = megastep.smem_limit(cuda)
+    limit = _native.smem_limit(cuda)
     assert megastep.tile_bytes(29033, 1) <= limit < megastep.tile_bytes(29059, 1)
     assert megastep.rk3_mega_supported(s1, s2, (29033, 1, 4), torch.float32, cuda)
     assert not megastep.rk3_mega_supported(s1, s2, (29059, 1, 4), torch.float32, cuda)
@@ -852,7 +852,6 @@ def test_burgers_takes_the_stepwise_head_on_long_x_lines(cuda):
 # 8192), a prime y-line (one chain), the fewest rows the schemes take (6),
 # and y-lines of 4096 points (128 chains: 2 columns a block for a pair,
 # one a thread at a time; 4 for one tile); ragged column blocks at nx = 40.
-# None walks columns.
 Y_PHASE_SHAPES = [(5, 512, 512), (64, 128, 8192), (5, 257, 40), (5, 6, 40), (5, 4096, 12)]
 Y_PHASE_KERNELS = ("K3", "K5", "K6", "K9", "K13")
 
@@ -889,7 +888,6 @@ def test_staged_y_phase_matches_plain(cuda, kernel, shape):
     g = torch.Generator(device="cpu").manual_seed(26)
     u = tuple(torch.randn(shape, generator=g).to(cuda) for _ in range(3))
     u64 = tuple(c.double() for c in u)
-    walks = lane.Y_WALKS
     counted = {}
     for module, name in ((adv_lap, "LAUNCHES"), (adv_lap, "LAUNCHES3"), (vec, "LAUNCHES"),
                          (adv_lap, "LAP_LAUNCHES"), (pair, "ADV_PAIR_LAUNCHES")):
@@ -897,7 +895,6 @@ def test_staged_y_phase_matches_plain(cuda, kernel, shape):
     outs, counter = _xy_kernel_pairs(kernel, u, u64, (0.04, 0.03, 0.02))
     torch.cuda.synchronize()
     assert getattr(*counter) == counted[counter] + 1
-    assert lane.Y_WALKS == walks
     for got, want in outs:
         assert _rel_err(got, want) <= F32_GATE
 
@@ -907,13 +904,14 @@ def test_staged_y_phase_matches_plain(cuda, kernel, shape):
 def test_y_phase_walks_columns_past_the_shared_memory(cuda, kernel, monkeypatch):
     """Prime y-lines of 29,059 points (one chain): a pair's two tiles of one
     column and their faces take 232,488 bytes, past the opt-in maximum of
-    232,448 that the device reports, so K3 and K5 walk one thread a column
-    (``lane.Y_WALKS``); one tile (K6, K9, K13) takes half and is staged, a
-    column a block. Both forms match the plain versions, whose float64 y
-    derivative is here the banded solve of the same compact system
-    (``dense.dense_derivative`` along the last axis of the transposed
-    field: the dense 29,059-point operator takes minutes to build)."""
-    limit = megastep.smem_limit(cuda)
+    232,448 that the device reports, so K3 and K5 raise before they launch
+    (``lane.y_tables``; their predicates decline the shape); one tile (K6,
+    K9, K13) takes half and is staged, a column a block, and matches the
+    plain version, whose float64 y derivative is here the banded solve of
+    the same compact system (``dense.dense_derivative`` along the last axis
+    of the transposed field: the dense 29,059-point operator takes minutes
+    to build)."""
+    limit = _native.smem_limit(cuda)
     assert lane.y_tile_bytes(29059, 1, 1) <= limit < lane.y_tile_bytes(29059, 1, 2)
     dense_derivative = dense.dense_derivative
 
@@ -927,10 +925,13 @@ def test_y_phase_walks_columns_past_the_shared_memory(cuda, kernel, monkeypatch)
         monkeypatch.setattr(module, "dense_derivative", banded_y)
     g = torch.Generator(device="cpu").manual_seed(27)
     u = tuple(torch.randn((5, 29059, 8), generator=g).to(cuda) for _ in range(3))
-    walks = lane.Y_WALKS
-    outs, _ = _xy_kernel_pairs(kernel, u, tuple(c.double() for c in u), (0.04, 0.03, 0.02))
+    u64 = tuple(c.double() for c in u)
+    if kernel in ("K3", "K5"):
+        with pytest.raises(ValueError, match="29059 points in 2 tiles takes 232488 bytes"):
+            _xy_kernel_pairs(kernel, u, u64, (0.04, 0.03, 0.02))
+        return
+    outs, _ = _xy_kernel_pairs(kernel, u, u64, (0.04, 0.03, 0.02))
     torch.cuda.synchronize()
-    assert lane.Y_WALKS == walks + (kernel in ("K3", "K5"))
     for got, want in outs:
         assert _rel_err(got, want) <= F32_GATE
 
@@ -939,11 +940,12 @@ def test_y_phase_walks_columns_past_the_shared_memory(cuda, kernel, monkeypatch)
 @pytest.mark.parametrize("n", [256, 512])
 def test_model_paths_stage_every_y_phase(cuda, n):
     """A Navier–Stokes step (K5, K6) at n^3, and at 256^3 an advection–
-    diffusion step (K3) and a Burgers step (K5): no y phase walks columns."""
+    diffusion step (K3) and a Burgers step (K5): each launches its fused
+    xy kernels, whose y phase is staged."""
     c = [coordinates(n, device=cuda) for _ in range(3)]
     u = taylor_green(*c)
     dx, dt = 2 * math.pi / n, 0.25 * 2 * math.pi / n
-    walks, launches = lane.Y_WALKS, (adv_lap.LAUNCHES, adv_lap.LAUNCHES3, vec.LAUNCHES)
+    launches = (adv_lap.LAUNCHES, adv_lap.LAUNCHES3, vec.LAUNCHES)
     NavierStokes.single_device(dx, ct.SCHEME4_PERIODIC, nu=1 / 1600).step(u, dt)
     want = [0, 3, 3]
     if n == 256:
@@ -954,4 +956,3 @@ def test_model_paths_stage_every_y_phase(cuda, n):
     torch.cuda.synchronize()
     assert [a - b for a, b in zip((adv_lap.LAUNCHES, adv_lap.LAUNCHES3, vec.LAUNCHES),
                                   launches)] == want
-    assert lane.Y_WALKS == walks

@@ -80,8 +80,8 @@ def _t(*arrays):
 @pytest.fixture
 def no_merged_head(monkeypatch):
     """x-lines that K3 and K5 do not take (nx >= 6135): the stepwise head."""
-    monkeypatch.setattr(adv_lap, "adv_lap_fits", lambda shape: False)
-    monkeypatch.setattr(adv_lap, "adv_lap3_fits", lambda shape: False)
+    monkeypatch.setattr(adv_lap, "adv_lap_fits", lambda shape, device=None: False)
+    monkeypatch.setattr(adv_lap, "adv_lap3_fits", lambda shape, device=None: False)
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +182,7 @@ ROUTES = {  # (head, tail) forced: merged/stepwise x mega/stepwise
 
 def _force(monkeypatch, stepwise_head, stepwise_tail):
     if stepwise_head:
-        monkeypatch.setattr(adv_lap, "adv_lap_fits", lambda shape: False)
+        monkeypatch.setattr(adv_lap, "adv_lap_fits", lambda shape, device=None: False)
     if stepwise_tail:
         monkeypatch.setattr(megastep, "rk3_mega_supported", lambda *args: False)
 
@@ -330,8 +330,8 @@ def test_velocity_models_float64_match_cfd_tpu_generic(monkeypatch, head, model)
                             nu=1e-2)
     ref = _jax_steps(jmodel, u)
     if head == "stepwise":
-        monkeypatch.setattr(adv_lap, "adv_lap_fits", lambda shape: False)
-        monkeypatch.setattr(adv_lap, "adv_lap3_fits", lambda shape: False)
+        monkeypatch.setattr(adv_lap, "adv_lap_fits", lambda shape, device=None: False)
+        monkeypatch.setattr(adv_lap, "adv_lap3_fits", lambda shape, device=None: False)
     else:
         monkeypatch.setattr(_native, "x_lines_fit", lambda nx, tiles=1: False)
     ut = tm.tensors_from_numpy(u, CPU, torch.float64)

@@ -43,9 +43,9 @@ same way, with both phases transcribed (``k9_staged``, ``k13_staged``):
 * the block sizing of ``xy_y_launch``: C = 32 columns a block, halved while
   half of them still cover the plane's nx, then while the block would pass
   512 threads (``tiles * line_nb(ny)`` chains a column) or its shared
-  memory (``lane.y_tile_bytes``) an H100's opt-in maximum; None (the
-  column walk) where one column does not fit; ``lane.y_tables``' choice of
-  the walk by the same bytes;
+  memory (``lane.y_tile_bytes``) an H100's opt-in maximum; None where one
+  column does not fit, where ``lane.y_tables`` raises and the five xy
+  predicates that stage the tiles (``lane.y_phase_fits``) decline;
 * the staging: ``tile[m * C + l]`` is row m of the block's column l, of
   ``sy`` (K13) or ``T_z sy`` (K9, ``TzRow.at``), 0 past the plane's last
   column;
@@ -70,7 +70,7 @@ import pytest
 import torch
 
 import cfd_tpu_torch as ct
-from cfd_tpu_torch.ops import adv_lap, dense, lane, megastep, pair
+from cfd_tpu_torch.ops import _native, adv_lap, dense, fused_step, lane, megastep, pair, vec
 from test_torch_lane_chains import DX, _chains, _rhs, _solve_chains
 
 K9_SCHEMES = {"SCHEME4_D2_PERIODIC": ct.SCHEME4_D2_PERIODIC,
@@ -201,7 +201,7 @@ def _x_phase(sx, out, mx, scheme, dtype):
 def _y_block(ny, nx, tiles, limit=SMEM_OPTIN):
     """``xy_y_launch``'s sizing of the staged y phase: (C, threads, shared
     bytes) for ``tiles`` tiles a column, or None where one column does not
-    fit ``limit`` (the column walk)."""
+    fit ``limit`` (the launch refuses it)."""
     nb = lane.line_nb(ny)
     C = Y_COLS
     while C > 1 and C // 2 >= nx:
@@ -395,31 +395,93 @@ def test_y_block_sizing():
     for (ny, nx, tiles), block in want.items():
         assert _y_block(ny, nx, tiles) == block, (ny, nx, tiles)
     assert _y_block(512, 512, 2)[2] > SMEM  # opted in at 512^3 and 256^3
-    assert _y_block(29059, 8, 2) is None  # a pair of one column's tiles: the column walk
+    assert _y_block(29059, 8, 2) is None  # a pair of one column's tiles does not fit
 
 
 def test_y_tables_walk_only_where_a_column_does_not_fit(monkeypatch):
     """``lane.y_tables`` takes the staged chains (``line_nb(ny)`` sub-blocks,
     the chain tables) wherever one column's tiles fit the device's opt-in
     maximum, here an H100's (``SMEM_OPTIN`` stands in for the device
-    query), and the column walk (nb = 0, the per-point tables) past it: a
-    pair on prime y-lines of 29,059 points. Off the card no limit holds."""
+    query), and raises past it: a pair on prime y-lines of 29,059 points.
+    No y phase walks columns. Off the card no limit holds."""
     pair_schemes = (ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC)
     cpu = torch.device("cpu")
     assert lane.y_tables(pair_schemes, 29059, DY, cpu)[0] == 1
-    monkeypatch.setattr(megastep, "smem_limit", lambda device: SMEM_OPTIN)
+    monkeypatch.setattr(_native, "smem_limit", lambda device: SMEM_OPTIN)
     for ny, tiles, nb in ((512, 2, 16), (512, 1, 16), (256, 2, 8), (29033, 2, 1),
                           (29059, 2, 0), (29059, 1, 1)):
+        fits = _y_block(ny, 8, tiles) is not None
+        assert lane.y_phase_fits(ny, tiles, cpu) == fits == (nb > 0), (ny, tiles)
+        if not fits:
+            with pytest.raises(ValueError, match=f"{ny} points in {tiles} tiles takes "
+                               f"{lane.y_tile_bytes(ny, 1, tiles)} bytes.*{SMEM_OPTIN}"):
+                lane.y_tables(pair_schemes[:tiles], ny, DY, cpu)
+            continue
         got, tables = lane.y_tables(pair_schemes[:tiles], ny, DY, cpu)
-        assert got == nb and (nb == 0) == (_y_block(ny, 8, tiles) is None), (ny, tiles)
+        assert got == nb, (ny, tiles)
         for (coef, table, h, win), scheme in zip(tables, pair_schemes):
             assert coef.n == ny and coef.scale == pytest.approx(DY ** -scheme.derivative_order)
-            if nb:
-                want, wh, wwin = lane.chain_table(scheme, ny, nb)
-                assert np.array_equal(table.numpy(), want.astype(np.float32))
-                assert (h, win) == (wh, wwin)
-            else:
-                assert tuple(table.shape) == (5, ny) and (h, win) == (0, 0)
+            want, wh, wwin = lane.chain_table(scheme, ny, nb)
+            assert np.array_equal(table.numpy(), want.astype(np.float32))
+            assert (h, win) == (wh, wwin)
+
+
+# the five predicates of the xy kernels that stage y-tiles, with their
+# schemes: kernel -> (predicate of ((nz, ny, nx), device), tiles a column)
+Y_PREDICATES = {
+    "K3": (lambda shape, dev: adv_lap.adv_lap_fits(shape, dev), 2),
+    "K5": (lambda shape, dev: adv_lap.adv_lap3_fits(shape, dev), 2),
+    "K6": (lambda shape, dev: vec.div_fused_supported(ct.SCHEME4_PERIODIC, *shape,
+                                                      torch.float32, dev), 1),
+    "K9": (lambda shape, dev: adv_lap.lap_rhs_supported(ct.SCHEME4_D2_PERIODIC, *shape,
+                                                        torch.float32, dev), 1),
+    "K13": (lambda shape, dev: pair.adv_pair_supported(ct.SCHEME4_PERIODIC, *shape[1:],
+                                                       torch.float32, dev), 1),
+}
+
+
+@pytest.mark.parametrize("kernel", list(Y_PREDICATES))
+def test_xy_predicates_decline_y_lines_past_the_shared_memory(monkeypatch, kernel):
+    """Under an H100's opt-in maximum (``_native.smem_limit``, the one
+    device query K4's ``rk3_mega_supported`` asks too), at prime y-lines of
+    29,059 points a pair's two tiles of one column (232,488 bytes) do not
+    fit, so K3 and K5 decline, and one tile (116,244) does, so K6, K9 and
+    K13 take them; at 29,033 points every one takes them, and off the card
+    no limit holds. Each predicate asks the limit of the device it is
+    given."""
+    predicate, tiles = Y_PREDICATES[kernel]
+    cpu = torch.device("cpu")
+    assert predicate((5, 29059, 8), cpu) and predicate((5, 29059, 8), None)
+    asked = []
+    monkeypatch.setattr(_native, "smem_limit",
+                        lambda device: asked.append(device) or SMEM_OPTIN)
+    assert predicate((5, 29059, 8), cpu) == (tiles == 1)
+    assert asked[-1] == cpu
+    assert predicate((5, 29033, 8), cpu)
+    assert megastep.rk3_mega_supported(ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC,
+                                       (29033, 1, 4), torch.float32, cpu)
+    assert not megastep.rk3_mega_supported(ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC,
+                                           (29059, 1, 4), torch.float32, cpu)
+
+
+def test_fused_substeps_follow_the_y_phase_limit(monkeypatch):
+    """Under an H100's opt-in maximum, on prime y-lines of 29,059 points the
+    scalar substep's head is K13 + K9 (K3's pair of tiles does not fit) and
+    the velocity stage declines (K5 does not fit); on y-lines of 58,111
+    points, where one tile passes the limit too, the scalar substep returns
+    None and the model runs its generic form. Only the routes run: the
+    fields are empty."""
+    s1, s2 = ct.SCHEME4_PERIODIC, ct.SCHEME4_D2_PERIODIC
+    monkeypatch.setattr(_native, "smem_limit", lambda device: SMEM_OPTIN)
+    f = torch.empty((5, 29059, 8))
+    assert fused_step.head_route(f, s1, s2) is fused_step.stepwise_head
+    assert fused_step.make_fused_substep_vec(0.1, s1, s2)((f, f, f), None, 1e-3, 1e-2,
+                                                          0.0, 1 / 3) is None
+    f = torch.empty((5, 58111, 8))
+    assert not lane.y_phase_fits(58111, 1, f.device)
+    assert fused_step.head_route(f, s1, s2) is None
+    assert fused_step.make_fused_substep(0.1, s1, s2)(f, (f, f, f), None, 1e-3, 1e-2,
+                                                      0.0, 1 / 3) is None
 
 
 @pytest.mark.parametrize("shape", Y_SHAPES, ids=[f"{s}" for s in Y_SHAPES])

@@ -57,7 +57,7 @@ import cfd_tpu_torch as ct
 from cfd_tpu_torch.ops import _native, adv_lap, dense, lane, vec
 from test_torch_lane_chains import DX, _chains
 from test_torch_xy_chains import (
-    CHAIN_THREADS, F32_GATE, F64_TOL, SMEM, TZROW_BYTES, Y_SHAPES, _check_walk, _fields,
+    CHAIN_THREADS, F32_GATE, F64_TOL, SMEM, SMEM_OPTIN, TZROW_BYTES, Y_SHAPES, _check_walk, _fields,
     _rel, _threads, _tz, _x_phase, y_phase,
 )
 
@@ -299,8 +299,10 @@ def test_divergence_past_the_x_limit_is_the_three_derivative_sum(monkeypatch):
     """Where ``div_fused_supported`` is False, ``divergence`` on a CUDA
     tensor routes to the three derivatives, as the JAX function does; the
     route is decided on the host before any launch, so CPU tensors dressed
-    as CUDA ones show which route it takes."""
+    as CUDA ones show which route it takes (an H100's opt-in maximum stands
+    in for the device query of the y phase's fit, ``_native.smem_limit``)."""
     calls = []
+    monkeypatch.setattr(_native, "smem_limit", lambda device: SMEM_OPTIN)
     monkeypatch.setattr(vec, "divergence_fused", lambda *a, **k: calls.append("fused"))
     from cfd_tpu_torch.ops import derivatives
 

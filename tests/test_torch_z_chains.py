@@ -41,7 +41,7 @@ import pytest
 import torch
 
 import cfd_tpu_torch as ct
-from cfd_tpu_torch.ops import fused_step, lane, megastep
+from cfd_tpu_torch.ops import _native, fused_step, lane, megastep
 from test_torch_lane_chains import _rhs, _solve_chains
 
 MEGA_COLS = 32  # columns a block takes where they fit
@@ -205,11 +205,11 @@ def test_rk3_mega_supported_takes_what_fits_the_shared_memory(monkeypatch):
     f32 = torch.float32
     sizes = (256, 8192, 29033, 29039, 29059)
     for nz in sizes:
-        assert megastep.smem_limit(torch.device("cpu")) is None
+        assert _native.smem_limit(torch.device("cpu")) is None
         assert megastep.rk3_mega_supported(s1, s2, (nz, 1, 4), f32, "cpu"), nz
         assert fused_step.tail_route(torch.zeros((nz, 1, 4)), s1, s2) is fused_step.mega_tail
     asked = []
-    monkeypatch.setattr(megastep, "smem_limit", lambda device: asked.append(device) or SMEM_OPTIN)
+    monkeypatch.setattr(_native, "smem_limit", lambda device: asked.append(device) or SMEM_OPTIN)
     for nz in sizes:
         fits = megastep.tile_bytes(nz, lane.line_nb(nz)) <= SMEM_OPTIN
         assert fits == (_block(nz, lane.line_nb(nz), 4) is not None), nz
